@@ -4,25 +4,36 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, ``nvcc`` and no network; exits non-zero without a
-GPU.  It builds the CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card, runs the profile CLI
-and then the main path at the full width and depth of TinyLlama-1.1B
-(``ProfileSession`` profile -> analyze -> compose, then the
-``lifetime_scan`` entry point on the traces the session profiled), checks
-the results against the session's own lifetimes and the golden file written
-from the JAX reference, and times the kernel.
+GPU.  It builds the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+per source, all at once), holds each kernel against its plain PyTorch
+version on the card, and drives the port's two paths:
+
+* profiling: the profile CLI, then profile -> analyze -> compose at the full
+  width and depth of TinyLlama-1.1B and the ``lifetime_scan`` entry point on
+  the traces the session profiled, checked against the session's own
+  lifetimes and the golden file written from the JAX reference;
+* serving: ``launch.serve.generate`` on the Zamba2 smoke config against the
+  JAX reference's golden logits and tokens, then Zamba2-2.7B at full width
+  and depth (54 Mamba-2 blocks, 9 shared-attention applications) with the
+  flash-attention and SSD-scan kernels, checked against the same model
+  through the kernels' plain versions.
+
+Then it times each kernel at the shapes its path gives it.
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
-phase (``device``, ``build``, ``kernel_check``, ``cli``, ``full``,
-``kernels``), then ``{"ok": true, "device": {...}}`` as the last line.  Any
-failed phase raises: nothing is caught, nothing falls back to the CPU or to
-a plain version.
+phase (``device``, ``build``, ``kernel_check`` per kernel, ``cli``,
+``full``, ``golden``, ``serve``), then the ``kernels`` line, then
+``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
+raises: nothing is caught, nothing falls back to the CPU or to a plain
+version.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -39,8 +50,30 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published peak
 # float32 outside the tensor cores peaks at 67 TFLOP/s counting a fused
 # multiply-add as two; taken as 33.5e12 instructions/s for integer work
 INT_OPS_PER_S = 33.5e12
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 KERNEL_SOURCE = "src/repro_torch/csrc/lifetime_scan.cu"
 KERNEL_REPLACES = "src/repro/kernels/lifetime_scan/kernel.py:49"
+SOURCES = ("lifetime_scan", "flash_attention_fwd", "ssd_scan")
+FA_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:26"
+SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:23"
+GOLDEN_ZAMBA2 = ROOT / "tests" / "fixtures" / "torch" / \
+    "golden_zamba2_smoke.npz"
+# the CPU tests' tolerances (atol = rtol), per dtype
+FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+GOLDEN_LOGIT_TOL = 1e-4          # float32 smoke logits against JAX on CPU
+# Zamba2-2.7B as published (bf16), served with the kernels
+SERVE = {"arch": "zamba2_2_7b", "batch": 4, "prompt_len": 1008, "gen": 16,
+         "param_seed": 0, "token_seed": 1}
+# kernel path against plain path: max |diff| over max |logit| of the
+# prefill logits.  In bf16 the paths round at other places and 63 residual
+# stages amplify it, so the serve line also gives the distance of a second
+# plain implementation (the reference's non-kernel path, attn_impl="ref")
+# to the plain path as the yardstick.  In float32, with the same weights,
+# rounding no longer hides a fault and the bound is tight.
+SERVE_REL_TOL = {"bfloat16": 0.5, "float32": 1e-3}
 
 
 def emit(phase: str, **fields) -> None:
@@ -109,6 +142,409 @@ def phase_kernel_check(torch, device) -> dict:
     emit("kernel_check", kernel="lifetime_scan", cases=cases,
          tolerance="exact (int64)", max_abs_err=max_err)
     return {"max_abs_err": max_err}
+
+
+@contextlib.contextmanager
+def routed(flash_attention_bhsd, ssd_scan_chunked):
+    """Route the flash-attention and SSD entry points (``ops``) to the
+    given functions for the duration."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    saved = fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_chunked
+    fa_ops.flash_attention_bhsd = flash_attention_bhsd
+    ssd_ops.ssd_scan_chunked = ssd_scan_chunked
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_chunked = saved
+
+
+def plain_kernels():
+    """The kernels' plain versions in place of the kernels (the reference
+    side of a comparison on the card; they launch and count nothing)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    return routed(fa_k.flash_attention_plain, ssd_k.ssd_scan_plain)
+
+
+@contextlib.contextmanager
+def first_calls():
+    """The kernels as they are, recording the inputs and outputs of each
+    one's first call on the path: yields {name: (args, kwargs, out)}."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    seen = {}
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.setdefault(name, (args, kwargs, out))
+            return out
+        return call
+    with routed(recorder("flash_attention_fwd", fa_k.flash_attention_bhsd),
+                recorder("ssd_scan", ssd_k.ssd_scan_chunked)):
+        yield seen
+
+
+def within(got, want, tol, what) -> float:
+    """max |got - want|; raises where |got - want| > tol + tol |want|."""
+    got, want = got.detach().float(), want.detach().float()
+    diff = (got - want).abs()
+    if not bool(got.isfinite().all()) or \
+            bool((diff > tol + tol * want.abs()).any()):
+        raise AssertionError(
+            f"{what}: kernel != plain version (max |diff| "
+            f"{float(diff.max())}, tolerance {tol} abs + rel)")
+    return float(diff.max())
+
+
+def phase_fa_check(torch, device) -> dict:
+    """K2 against its plain version: every head dim the kernel is built for
+    (80 is Zamba2-2.7B's), GQA, Sq != Skv, causal and not, ragged lengths,
+    the model layout's strided views, both dtypes, and the serving shape."""
+    from repro_torch.kernels.flash_attention import kernel as k
+    shapes = [  # (B, H, KV, Sq, Skv, hd, causal, model layout)
+        (1, 2, 2, 128, 128, 16, True, False),
+        (2, 4, 2, 256, 200, 64, False, True),
+        (1, 8, 2, 256, 100, 80, True, False),
+        (2, 4, 1, 77, 130, 128, False, False),
+        (1, 4, 4, 100, 300, 80, True, True),
+        (2, 6, 3, 193, 193, 64, True, True),
+        (1, 2, 1, 1, 50, 128, False, False),
+        (1, 2, 2, 33, 33, 32, True, True),
+        (1, 4, 2, 70, 90, 48, True, True),
+        (1, 3, 1, 65, 65, 96, False, False),
+        (2, 2, 2, 64, 129, 112, True, False),
+    ]
+    cases, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    runs = [(s, dt) for s in shapes for dt in ("float32", "bfloat16")]
+    runs.append(((4, 32, 32, 1024, 1024, 80, True, True), "bfloat16"))
+    for i, ((B, H, KV, Sq, Skv, hd, causal, model), dt) in enumerate(runs):
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        dtype = getattr(torch, dt)
+
+        def make(heads, s):
+            if model:       # [B, S, heads, hd] as the attention block has it
+                x = torch.randn((B, s, heads, hd), generator=g,
+                                device=device).to(dtype)
+                return x.transpose(1, 2)
+            return torch.randn((B, heads, s, hd), generator=g,
+                               device=device).to(dtype)
+        q, kk, v = make(H, Sq), make(KV, Skv), make(KV, Skv)
+        o, lse = k.flash_attention_bhsd(q, kk, v, causal=causal)
+        torch.cuda.synchronize()
+        o_p, lse_p = k.flash_attention_plain(q, kk, v, causal=causal)
+        tol = FA_TOL[dt]
+        what = f"flash_attention {dt} {(B, H, KV, Sq, Skv, hd, causal)}"
+        err = max(within(o, o_p, tol, what + " o"),
+                  within(lse, lse_p, tol, what + " lse"))
+        max_err[dt] = max(max_err[dt], err)
+        cases.append([B, H, KV, Sq, Skv, hd, causal, model, dt, err])
+    emit("kernel_check", kernel="flash_attention_fwd", cases=len(cases),
+         tolerance={d: f"{t} abs + {t} rel, o and lse"
+                    for d, t in FA_TOL.items()},
+         max_abs_err=max_err, detail=cases)
+    return {"max_abs_err": max(max_err.values())}
+
+
+def ssd_inputs(torch, device, b, l, h, p, n, dt_x, dt_bc, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    x = rn(b, l, h, p).to(getattr(torch, dt_x))
+    dt = torch.nn.functional.softplus(rn(b, l, h))
+    A = -torch.exp(rn(h) * 0.5)
+    B = rn(b, l, n).to(getattr(torch, dt_bc))
+    C = rn(b, l, n).to(getattr(torch, dt_bc))
+    return x, dt, A, B, C, torch.ones(h, device=device)
+
+
+def phase_ssd_check(torch, device) -> dict:
+    """K5 against its plain version (both through ``ops.ssd_scan``'s
+    padding): chunk 32/64/256, ragged l, fp32 and bf16 (and bf16 x with
+    fp32 B/C), Zamba2-2.7B's (h, p, n) and the smoke config's, and the
+    serving shape."""
+    from repro_torch.kernels.ssd_scan import ops
+    runs = [  # (b, l, h, p, n, chunk, x dtype, B/C dtype)
+        (2, 256, 80, 64, 64, 32, "float32", "float32"),
+        (1, 300, 80, 64, 64, 64, "float32", "float32"),
+        (2, 512, 80, 64, 64, 256, "float32", "float32"),
+        (1, 100, 80, 64, 64, 256, "float32", "float32"),
+        (2, 256, 80, 64, 64, 32, "bfloat16", "bfloat16"),
+        (1, 300, 80, 64, 64, 64, "bfloat16", "bfloat16"),
+        (2, 512, 80, 64, 64, 256, "bfloat16", "float32"),
+        (1, 100, 80, 64, 64, 256, "bfloat16", "bfloat16"),
+        (2, 40, 8, 16, 16, 32, "float32", "float32"),
+        (1, 37, 3, 8, 8, 16, "float32", "float32"),
+        (4, 1024, 80, 64, 64, 256, "bfloat16", "bfloat16"),
+    ]
+    cases, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    for i, (b, l, h, p, n, chunk, dx, dbc) in enumerate(runs):
+        x, dt, A, B, C, D = ssd_inputs(torch, device, b, l, h, p, n, dx, dbc,
+                                       seed=200 + i)
+        y = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+        torch.cuda.synchronize()
+        with plain_kernels():
+            y_p = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+        err = within(y, y_p, SSD_TOL[dx],
+                     f"ssd_scan {(b, l, h, p, n, chunk, dx, dbc)}")
+        max_err[dx] = max(max_err[dx], err)
+        cases.append([b, l, h, p, n, chunk, dx, dbc, err])
+    emit("kernel_check", kernel="ssd_scan", cases=len(cases),
+         tolerance={d: f"{t} abs + {t} rel" for d, t in SSD_TOL.items()},
+         max_abs_err=max_err, detail=cases)
+    return {"max_abs_err": max(max_err.values())}
+
+
+def reset_serving_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    fa_k.flash_attention_bhsd.launches = 0
+    ssd_k.ssd_scan_chunked.launches = 0
+
+
+def serving_counts() -> tuple:
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    return (fa_k.flash_attention_bhsd.launches,
+            ssd_k.ssd_scan_chunked.launches)
+
+
+def expected_counts(cfg) -> tuple:
+    return cfg.n_layers // cfg.attn_every, cfg.n_layers
+
+
+def phase_golden(torch, np, device) -> None:
+    """``generate`` on the card, with the kernels, at the Zamba2 smoke
+    width, against the JAX reference's logits and greedy tokens."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import load_reference_params, tree_from_flat
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build
+
+    fx = dict(np.load(GOLDEN_ZAMBA2))
+    cfg = dataclasses.replace(get_config("zamba2_2_7b", smoke=True),
+                              attn_impl="flash", param_dtype="float32")
+    api = build(cfg, device=device)
+    load_reference_params(api.model, tree_from_flat(fx))
+    tokens = torch.from_numpy(fx["tokens"]).to(device)
+    reset_serving_counts()
+    out = generate(api, tokens, int(fx["prompt_len"]), int(fx["gen"]))
+    counts = serving_counts()
+    logits = out.prefill_logits.cpu().numpy()
+    err = float(np.abs(logits - fx["prefill_logits"]).max())
+    if not np.isfinite(logits).all() or err > GOLDEN_LOGIT_TOL:
+        raise AssertionError(f"golden: prefill logits differ from the JAX "
+                             f"reference by {err} > {GOLDEN_LOGIT_TOL}")
+    got = out.tokens.cpu().numpy()
+    if not np.array_equal(got, fx["greedy_tokens"]):
+        raise AssertionError(f"golden: greedy tokens {got.tolist()} != "
+                             f"{fx['greedy_tokens'].tolist()}")
+    if counts != expected_counts(cfg):
+        raise AssertionError(f"golden: (flash_attention, ssd_scan) launches "
+                             f"{counts}, expected {expected_counts(cfg)}")
+    emit("golden", config="zamba2 smoke, attn_impl=flash, float32",
+         batch=int(tokens.shape[0]), tokens=int(tokens.shape[1]),
+         gen=int(fx["gen"]), max_abs_logit_err=err,
+         tolerance=GOLDEN_LOGIT_TOL, tokens_equal=True,
+         launches={"flash_attention_fwd": counts[0], "ssd_scan": counts[1]})
+
+
+def phase_serve(torch, device) -> dict:
+    """Zamba2-2.7B at full width and depth, random weights from a seed, the
+    kernels on: prefill over prompt + generation tokens, greedy decode.
+
+    Checks: each kernel's first call on the path against its plain version
+    on the same inputs (the kernel_check tolerances); the prefill logits
+    against the same model through the plain versions, in the published
+    bf16 and again with the same weights in float32."""
+    from repro_torch.configs.base import ShapeCell, get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build
+
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), attn_impl="flash")
+    t0 = time.perf_counter()
+    api = build(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(SERVE["param_seed"]))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in api.model.parameters())
+    total = SERVE["prompt_len"] + SERVE["gen"]
+    tokens = api.make_batch(
+        torch.Generator(device=device).manual_seed(SERVE["token_seed"]),
+        ShapeCell("serve", "prefill", total, SERVE["batch"]))["tokens"]
+
+    with first_calls() as seen:                           # warm-up
+        generate(api, tokens, SERVE["prompt_len"], 2)
+    args, kw, (o, lse) = seen["flash_attention_fwd"]
+    o_p, lse_p = fa_k.flash_attention_plain(*args, **kw)
+    on_path = {"flash_attention_fwd": max(
+        within(o, o_p, FA_TOL["bfloat16"], "serve: flash_attention o"),
+        within(lse, lse_p, FA_TOL["bfloat16"], "serve: flash_attention lse"))}
+    args, kw, y = seen["ssd_scan"]
+    on_path["ssd_scan"] = within(y, ssd_k.ssd_scan_plain(*args, **kw),
+                                 SSD_TOL["bfloat16"], "serve: ssd_scan")
+    del seen, args, kw, o, lse, o_p, lse_p, y
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_serving_counts()                   # main path starts here
+    out = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+    counts = serving_counts()                # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    if counts != expected_counts(cfg):
+        raise AssertionError(f"serve: (flash_attention, ssd_scan) launches "
+                             f"{counts}, expected {expected_counts(cfg)}")
+    logits = out.prefill_logits.float()
+    if tuple(logits.shape) != (SERVE["batch"], cfg.vocab) or \
+            not bool(logits.isfinite().all()):
+        raise AssertionError("serve: prefill logits are not finite "
+                             f"[batch, vocab]: {tuple(logits.shape)}")
+    with plain_kernels():
+        plain = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+    bf16 = compare_paths(out, plain, SERVE_REL_TOL["bfloat16"], "bf16")
+    api.model.cfg = dataclasses.replace(cfg, attn_impl="ref")
+    ref = generate(api, tokens, SERVE["prompt_len"], 2)
+    api.model.cfg = cfg
+    bf16["ref_path_vs_plain_rel_err"] = float(
+        (ref.prefill_logits.float() - plain.prefill_logits.float()).abs()
+        .max() / plain.prefill_logits.float().abs().max())
+    del api, out, plain, ref
+    torch.cuda.empty_cache()
+
+    # the same weights in float32: rounding no longer hides a kernel fault
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    api = build(cfg32, device=device, generator=torch.Generator(
+        device=device).manual_seed(SERVE["param_seed"]))
+    out32 = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+    with plain_kernels():
+        plain32 = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+    f32 = compare_paths(out32, plain32, SERVE_REL_TOL["float32"], "float32")
+    del api, out32, plain32
+    torch.cuda.empty_cache()
+
+    emit("serve", arch=cfg.name, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, params=n_params, param_dtype=cfg.param_dtype,
+         batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
+         gen=SERVE["gen"], init_s=init_s, prefill_s=bf16["prefill_s"],
+         decode_s=bf16["decode_s"],
+         decode_tokens_per_s=SERVE["batch"] * (SERVE["gen"] - 1)
+         / bf16["decode_s"],
+         max_memory_allocated=peak,
+         launches={"flash_attention_fwd": counts[0], "ssd_scan": counts[1]},
+         first_call_max_abs_err=on_path, kernel_vs_plain_bf16=bf16,
+         kernel_vs_plain_float32=f32, tolerance=SERVE_REL_TOL)
+    return {"cfg": cfg, "counts": counts}
+
+
+def compare_paths(out, plain, tol, what) -> dict:
+    """Kernel path against plain path: max |diff| of the prefill logits
+    over max |logit| (raises above ``tol``), greedy agreement, times."""
+    a, b = out.prefill_logits.float(), plain.prefill_logits.float()
+    rel = float((a - b).abs().max() / b.abs().max())
+    if not bool(a.isfinite().all()) or rel > tol:
+        raise AssertionError(f"serve ({what}): kernel-path logits differ "
+                             f"from the plain path by {rel} of max |logit| "
+                             f"> {tol}")
+    return {"logits_rel_err": rel,
+            "greedy_tokens_equal_fraction":
+                float((out.tokens == plain.tokens).float().mean()),
+            "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+            "plain_prefill_s": plain.prefill_s,
+            "plain_decode_s": plain.decode_s,
+            "tokens_batch0": out.tokens[0].tolist()}
+
+
+def kernel_row(name, source, replaces, launches, max_err, ms, plain_ms,
+               n_bytes, n_flops, flops_per_s, library_ms, **extra) -> dict:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_flops / flops_per_s * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": library_ms, "bytes": n_bytes, "flops": n_flops,
+            **extra}
+
+
+def time_serving_kernels(torch, device, serve, fa_check, ssd_check) -> list:
+    """K2 and K5 at the shapes the full serve path launches them with."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    cfg = serve["cfg"]
+    B, S = SERVE["batch"], SERVE["prompt_len"] + SERVE["gen"]
+    H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    g = torch.Generator(device=device).manual_seed(300)
+    bf16 = torch.bfloat16
+
+    def model_layout(heads):     # [B, S, heads, hd] seen as [B, heads, S, hd]
+        return torch.randn((B, S, heads, hd), generator=g,
+                           device=device).to(bf16).transpose(1, 2)
+    q, k, v = model_layout(H), model_layout(KV), model_layout(KV)
+    ms = statistics.median(cuda_ms(
+        lambda: fa_k.flash_attention_bhsd(q, k, v, causal=True), runs=20))
+    plain_ms = statistics.median(cuda_ms(
+        lambda: fa_k.flash_attention_plain(q, k, v, causal=True), runs=5))
+    lib_ms = statistics.median(cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        runs=20))
+    pairs = B * H * S * (S + 1) // 2          # causal (q, kv) pairs needed
+    fa_bytes = 2 * (B * H * S * hd + 2 * B * KV * S * hd + B * H * S * hd) \
+        + 4 * B * H * S
+    fa_row = kernel_row(
+        "flash_attention_fwd", FA_SOURCE, FA_REPLACES, serve["counts"][0],
+        fa_check["max_abs_err"], ms, plain_ms, fa_bytes, 4 * hd * pairs,
+        BF16_FLOPS_PER_S, lib_ms,
+        shape={"B": B, "H": H, "KV": KV, "Sq": S, "Skv": S, "hd": hd,
+               "causal": True, "dtype": "bfloat16"})
+
+    nh = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    p, n, Q = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    L = -(-S // Q) * Q                        # ops.ssd_scan pads to chunks
+    x, dt, A, Bm, Cm, D = ssd_inputs(torch, device, B, L, nh, p, n,
+                                     "bfloat16", "bfloat16", seed=301)
+    ms = statistics.median(cuda_ms(
+        lambda: ssd_k.ssd_scan_chunked(x, dt, A, Bm, Cm, D, chunk=Q),
+        runs=20))
+    plain_ms = statistics.median(cuda_ms(
+        lambda: ssd_k.ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=Q), runs=5))
+    n_chunks = L // Q
+    tri = Q * (Q + 1) // 2                    # (i, j) pairs with j <= i
+    # matrix products a tensor-core design needs: C B^T once per (batch,
+    # chunk), (C B^T o decay) x per head, C state and the state update
+    ssd_flops = B * n_chunks * (tri * 2 * n + nh * (
+        tri * 2 * p + 2 * Q * 2 * p * n))
+    ssd_bytes = 2 * 2 * B * L * nh * p + 4 * B * L * nh + 2 * 2 * B * L * n \
+        + 2 * 4 * nh
+    ssd_row = kernel_row(
+        "ssd_scan", SSD_SOURCE, SSD_REPLACES, serve["counts"][1],
+        ssd_check["max_abs_err"], ms, plain_ms, ssd_bytes, ssd_flops,
+        BF16_FLOPS_PER_S, None,
+        shape={"b": B, "l": L, "h": nh, "p": p, "n": n, "chunk": Q,
+               "dtype": "bfloat16"},
+        operations_peak="bf16 tensor cores (989 TFLOP/s): the scan's "
+                        "products are matrix products a redesign can run "
+                        "on mma")
+    return [fa_row, ssd_row]
+
+
+def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
+        libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    emit("build", kernels=list(SOURCES), seconds=time.perf_counter() - t0,
+         ptxas={name: [ln.strip() for ln in
+                       lib.with_suffix(".log").read_text().splitlines()
+                       if "registers" in ln or "spill" in ln]
+                for name, lib in libs.items()})
 
 
 def check_report_against_golden(report, entry) -> int:
@@ -260,7 +696,8 @@ def phase_full(torch, np, device, golden) -> dict:
             "edges": torch.from_numpy(ie).to(device)}
 
 
-def phase_kernels(torch, full, check) -> dict:
+def time_lifetime_scan(torch, full, check) -> dict:
+    """K1 at the largest subpartition of the full-depth profiling path."""
     from repro_torch.kernels.lifetime_scan import kernel as k
     t, a, w = full["sorted"]
     edges = full["edges"]
@@ -291,7 +728,7 @@ def phase_kernels(torch, full, check) -> dict:
         "library_ms": None,
         "events": n, "segments": n_segments, "bytes": n_bytes,
     }
-    return {"kernels": [row]}
+    return row
 
 
 def main() -> int:
@@ -303,7 +740,6 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.device import default_device
-    from repro_torch.kernels import _build
 
     device = default_device()
     smi = subprocess.run(
@@ -314,19 +750,22 @@ def main() -> int:
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    t0 = time.perf_counter()
-    lib = _build.build("lifetime_scan")
-    emit("build", kernels=["lifetime_scan"], seconds=time.perf_counter() - t0,
-         ptxas=[ln.strip() for ln in
-                lib.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln or "spill" in ln])
+    # float32 products in full float32 on both sides of every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
 
     golden = json.loads(GOLDEN.read_text())
     check = phase_kernel_check(torch, device)
+    fa_check = phase_fa_check(torch, device)
+    ssd_check = phase_ssd_check(torch, device)
     phase_cli(golden)
     full = phase_full(torch, np, device, golden)
-    kernels = phase_kernels(torch, full, check)
-    print(json.dumps(kernels), flush=True)
+    phase_golden(torch, np, device)
+    serve = phase_serve(torch, device)
+    rows = [time_lifetime_scan(torch, full, check)]
+    rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
+    print(json.dumps({"kernels": rows}), flush=True)
 
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,8 @@ from typing import Optional
 # the architectures this package has a config module for
 ARCH_IDS = (
     "tinyllama_1_1b",
+    "zamba2_2_7b",
+    "mamba2_130m",
 )
 
 

@@ -1,5 +1,6 @@
-"""Write ``tests/fixtures/torch/golden_tinyllama_systolic.json``.
+"""Write the golden files the PyTorch port is held to on the GPU.
 
+``tests/fixtures/torch/golden_tinyllama_systolic.json``:
 Runs the JAX *reference* package on the registry workload
 ``tinyllama_1_1b`` (systolic backend, seq 128, 128 x 128 PEs, ``ws``
 dataflow, full TinyLlama widths) at ``n_layers`` 2 and 22 and records, per
@@ -12,11 +13,20 @@ default composition's capacity fractions.
 
 The 22-layer run holds a 33.6 M-event trace; pass ``--layers 2`` to write
 the small entry only (an entry that is not rerun is kept from the file).
+
+``tests/fixtures/torch/golden_zamba2_smoke.npz``: the reference's serving
+loop (``serve.py``: prefill over prompt + generation tokens, then greedy
+decode steps) on the Zamba2 smoke config with ``attn_impl="flash"`` (both
+Pallas kernels, in interpret mode on the CPU) and ``param_dtype="float32"``,
+parameters from ``PRNGKey(0)``, prompt tokens from a numpy seed.  It holds
+the parameters (``param:<path>``), the tokens, the prefill logits and the
+greedy tokens.  ``--only zamba2`` writes this file alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
 
@@ -27,16 +37,60 @@ import numpy as np
 if not hasattr(jax.experimental, "enable_x64"):     # see tests/conftest.py
     jax.experimental.enable_x64 = jax.enable_x64
 
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import get_config  # noqa: E402
 from repro.core import ProfileSession  # noqa: E402
 from repro.kernels.lifetime_scan.ops import default_edges  # noqa: E402
 from repro.kernels.lifetime_scan.ref import \
     lifetime_hist_reference  # noqa: E402
+from repro.models import hybrid  # noqa: E402
 from repro.workloads import get_workload  # noqa: E402
 
 OUT = Path(__file__).parent / "fixtures" / "torch" / \
     "golden_tinyllama_systolic.json"
 RUN = {"arch": "tinyllama_1_1b", "backend": "systolic", "seq": 128,
        "pe": 128, "dataflow": "ws"}
+OUT_ZAMBA2 = Path(__file__).parent / "fixtures" / "torch" / \
+    "golden_zamba2_smoke.npz"
+ZAMBA2 = {"batch": 2, "prompt_len": 24, "gen": 8, "token_seed": 0}
+
+
+def flatten(tree, prefix=""):
+    """Nested dicts of arrays -> {"a/b/c": float32 array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, np.float32)
+    return out
+
+
+def golden_zamba2() -> dict:
+    cfg = dataclasses.replace(get_config("zamba2_2_7b", smoke=True),
+                              attn_impl="flash", param_dtype="float32")
+    params, _ = hybrid.init_lm(jax.random.PRNGKey(0), cfg)
+    total = ZAMBA2["prompt_len"] + ZAMBA2["gen"]
+    tokens = np.random.default_rng(ZAMBA2["token_seed"]).integers(
+        0, cfg.vocab, (ZAMBA2["batch"], total))
+    logits, cache = hybrid.prefill(params, cfg, jnp.asarray(tokens,
+                                                            jnp.int32))
+    prefill_logits = np.asarray(logits, np.float32)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    outs = [np.asarray(tok)]
+    for i in range(ZAMBA2["gen"] - 1):
+        logits, cache = hybrid.decode_step(params, cfg, cache, tok,
+                                           ZAMBA2["prompt_len"] + i)
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        outs.append(np.asarray(tok))
+    fixture = {f"param:{k}": v for k, v in flatten(params).items()}
+    fixture.update(tokens=tokens.astype(np.int64),
+                   prompt_len=np.int64(ZAMBA2["prompt_len"]),
+                   gen=np.int64(ZAMBA2["gen"]),
+                   prefill_logits=prefill_logits,
+                   greedy_tokens=np.stack(outs, 1).astype(np.int64))
+    return fixture
 
 
 def golden_entry(n_layers: int) -> dict:
@@ -82,7 +136,13 @@ def golden_entry(n_layers: int) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 22])
+    ap.add_argument("--only", choices=["tinyllama", "zamba2"])
     args = ap.parse_args(argv)
+    if args.only != "tinyllama":
+        np.savez_compressed(OUT_ZAMBA2, **golden_zamba2())
+        print(f"wrote {OUT_ZAMBA2}")
+    if args.only == "zamba2":
+        return
     golden = json.loads(OUT.read_text()) if OUT.exists() else {}
     golden["run"] = RUN
     golden.setdefault("entries", {})

@@ -39,7 +39,19 @@ def test_port_imports_neither_jax_nor_reference():
                    "repro_torch.kernels._build", "repro_torch.convert",
                    "repro_torch.backends.systolic",
                    "repro_torch.compose.engine",
-                   "repro_torch.launch.profile", "repro_torch.__main__"):
+                   "repro_torch.launch.profile", "repro_torch.__main__",
+                   "repro_torch.configs.zamba2_2_7b",
+                   "repro_torch.configs.mamba2_130m",
+                   "repro_torch.kernels.flash_attention.kernel",
+                   "repro_torch.kernels.flash_attention.ops",
+                   "repro_torch.kernels.flash_attention.ref",
+                   "repro_torch.kernels.ssd_scan.kernel",
+                   "repro_torch.kernels.ssd_scan.ops",
+                   "repro_torch.kernels.ssd_scan.ref",
+                   "repro_torch.models.layers", "repro_torch.models.mamba2",
+                   "repro_torch.models.hybrid",
+                   "repro_torch.models.transformer",
+                   "repro_torch.models.api", "repro_torch.launch.serve"):
         assert needed in mods
     code = (
         "import importlib, json, sys\n"
@@ -101,6 +113,56 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
         profile_main(["--backend", "systolic", "--dry-run"])
 
 
+def test_serving_entry_points_default_to_the_card_and_raise_without_one(
+        monkeypatch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.api import build
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("zamba2_2_7b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--arch", "zamba2_2_7b", "--smoke"])
+    assert build(cfg, device="cpu").device == torch.device("cpu")
+
+
+def _small_kernel_inputs():
+    g = torch.Generator().manual_seed(0)
+    fa = [torch.randn(1, 2, 5, 16, generator=g) for _ in range(3)]
+    x = torch.randn(1, 8, 2, 4, generator=g)
+    ssd = [x, torch.rand(1, 8, 2, generator=g), -torch.rand(2, generator=g),
+           torch.randn(1, 8, 3, generator=g), torch.randn(1, 8, 3,
+                                                          generator=g),
+           torch.ones(2)]
+    return fa, ssd
+
+
+def test_new_kernel_wrappers_never_fall_back_from_a_device(monkeypatch):
+    """Off the CPU a wrapper launches its kernel or raises: a tensor on a
+    device it does not run on raises, and without a compiler the launch
+    raises too, rather than running the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    fa, ssd = _small_kernel_inputs()
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa_k.flash_attention_bhsd(*(t.to("meta") for t in fa))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ssd_k.ssd_scan_chunked(*(t.to("meta") for t in ssd), chunk=4)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "library_path",
+                        lambda name: Path("/nonexistent") / f"{name}.so")
+    for mod in (fa_k, ssd_k):
+        mod._launcher.cache_clear()
+        _build.load_library.cache_clear()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            mod._launcher()
+        mod._launcher.cache_clear()
+
+
 def test_cpu_tensor_takes_plain_version_without_a_compiler(monkeypatch):
     from repro_torch.kernels import _build
     from repro_torch.kernels.lifetime_scan import kernel
@@ -123,6 +185,21 @@ def test_cpu_tensor_takes_plain_version_without_a_compiler(monkeypatch):
     assert stats.tolist() == s_p.tolist() == [1, 1, 9, 9, 2, 2, 0, 0]
     assert kernel.lifetime_scan_sorted.launches == before   # no launch
 
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    fa_k._launcher.cache_clear()
+    ssd_k._launcher.cache_clear()
+    fa, ssd = _small_kernel_inputs()
+    before = fa_k.flash_attention_bhsd.launches, \
+        ssd_k.ssd_scan_chunked.launches
+    o, lse = fa_k.flash_attention_bhsd(*fa, causal=True)
+    o_p, lse_p = fa_k.flash_attention_plain(*fa, causal=True)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    y = ssd_k.ssd_scan_chunked(*ssd, chunk=4)
+    assert torch.equal(y, ssd_k.ssd_scan_plain(*ssd, chunk=4))
+    assert (fa_k.flash_attention_bhsd.launches,
+            ssd_k.ssd_scan_chunked.launches) == before
+
 
 def test_build_module_names_its_library_by_source_hash():
     from repro_torch.kernels import _build
@@ -130,8 +207,10 @@ def test_build_module_names_its_library_by_source_hash():
     assert p.parent == SRC.parent / "build" / "repro_torch_kernels"
     assert p.suffix == ".so" and p.name.startswith("lifetime_scan-")
     assert p == _build.library_path("lifetime_scan")        # deterministic
-    src = (_build.CSRC_DIR / "lifetime_scan.cu").read_text()
-    assert 'extern "C" int lifetime_scan_launch' in src
+    for name in ("lifetime_scan", "flash_attention_fwd", "ssd_scan"):
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_launch' in src
+        assert _build.library_path(name).name.startswith(f"{name}-")
     ignored = (SRC.parent / ".gitignore").read_text().split()
     assert "build/" in ignored
 
