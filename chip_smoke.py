@@ -16,16 +16,24 @@ version on the card, and drives the port's two paths:
   JAX reference's golden logits and tokens, then Zamba2-2.7B at full width
   and depth (54 Mamba-2 blocks, 9 shared-attention applications) with the
   flash-attention and SSD-scan kernels, checked against the same model
-  through the kernels' plain versions.
+  through the kernels' plain versions;
+* training: ``launch.steps.make_train_step`` on the TinyLlama smoke config
+  against the JAX reference's three golden steps, then again under
+  ``TrainSupervisor`` and ``CheckpointManager`` with a fault injected (the
+  replayed losses must be bit-equal), then TinyLlama-1.1B at full width and
+  depth (22 layers, bf16 parameters, fp32 AdamW state, per-layer remat,
+  batch 4 x 2048) for five steps with the flash-attention forward and
+  backward kernels, checked against the same model through the kernels'
+  plain versions in float32.
 
 Then it times each kernel at the shapes its path gives it.
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
 phase (``device``, ``build``, ``kernel_check`` per kernel, ``cli``,
-``full``, ``golden``, ``serve``), then the ``kernels`` line, then
-``{"ok": true, "device": {...}}`` as the last line.  Any failed phase
-raises: nothing is caught, nothing falls back to the CPU or to a plain
-version.
+``full``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
+``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
+Any failed phase raises: nothing is caught, nothing falls back to the CPU or
+to a plain version.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ INT_OPS_PER_S = 33.5e12
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 KERNEL_SOURCE = "src/repro_torch/csrc/lifetime_scan.cu"
 KERNEL_REPLACES = "src/repro/kernels/lifetime_scan/kernel.py:49"
-SOURCES = ("lifetime_scan", "flash_attention_fwd", "ssd_scan")
+SOURCES = ("lifetime_scan", "flash_attention_fwd", "ssd_scan",
+           "flash_attention_bwd")
 FA_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:26"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
@@ -74,6 +83,25 @@ SERVE = {"arch": "zamba2_2_7b", "batch": 4, "prompt_len": 1008, "gen": 16,
 # to the plain path as the yardstick.  In float32, with the same weights,
 # rounding no longer hides a fault and the bound is tight.
 SERVE_REL_TOL = {"bfloat16": 0.5, "float32": 1e-3}
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+DQ_REPLACES = "src/repro/kernels/flash_attention/kernel_bwd.py:38"
+DKV_REPLACES = "src/repro/kernels/flash_attention/kernel_bwd.py:79"
+# backward kernels against their plain version (atol = rtol), per dtype
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GOLDEN_TRAIN = ROOT / "tests" / "fixtures" / "torch" / \
+    "golden_tinyllama_train_smoke.npz"
+# the smoke training steps on the card against the JAX reference's (CPU):
+# loss and grad_norm relative, lr relative, final parameters abs + rel (as
+# tests/test_torch_train.py holds the CPU path)
+TRAIN_GOLDEN_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "lr": 1e-6,
+                    "params": 1e-5}
+# TinyLlama-1.1B as published (bf16 parameters, remat), trained with the
+# kernels: batch x seq tokens per step (seq = TinyLlama's context)
+TRAIN = {"arch": "tinyllama_1_1b", "batch": 4, "seq": 2048, "steps": 5,
+         "param_seed": 0, "data_seed": 0}
+# kernel path against plain path, float32 weights, one step: relative loss
+# difference and each gradient leaf's relative 2-norm difference
+TRAIN_REL_TOL = {"loss": 1e-4, "grad": 1e-3}
 
 
 def emit(phase: str, **fields) -> None:
@@ -145,26 +173,31 @@ def phase_kernel_check(torch, device) -> dict:
 
 
 @contextlib.contextmanager
-def routed(flash_attention_bhsd, ssd_scan_chunked):
-    """Route the flash-attention and SSD entry points (``ops``) to the
-    given functions for the duration."""
+def routed(flash_attention_bhsd, ssd_scan_chunked, flash_attention_bwd_bhsd):
+    """Route the flash-attention forward and backward and the SSD entry
+    points (``ops``) to the given functions for the duration."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    saved = fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_chunked
+    saved = (fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_chunked,
+             fa_ops.flash_attention_bwd_bhsd)
     fa_ops.flash_attention_bhsd = flash_attention_bhsd
     ssd_ops.ssd_scan_chunked = ssd_scan_chunked
+    fa_ops.flash_attention_bwd_bhsd = flash_attention_bwd_bhsd
     try:
         yield
     finally:
-        fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_chunked = saved
+        (fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_chunked,
+         fa_ops.flash_attention_bwd_bhsd) = saved
 
 
 def plain_kernels():
     """The kernels' plain versions in place of the kernels (the reference
     side of a comparison on the card; they launch and count nothing)."""
     from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
     from repro_torch.kernels.ssd_scan import kernel as ssd_k
-    return routed(fa_k.flash_attention_plain, ssd_k.ssd_scan_plain)
+    return routed(fa_k.flash_attention_plain, ssd_k.ssd_scan_plain,
+                  bwd_k.flash_attention_bwd_plain)
 
 
 @contextlib.contextmanager
@@ -181,8 +214,11 @@ def first_calls():
             seen.setdefault(name, (args, kwargs, out))
             return out
         return call
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
     with routed(recorder("flash_attention_fwd", fa_k.flash_attention_bhsd),
-                recorder("ssd_scan", ssd_k.ssd_scan_chunked)):
+                recorder("ssd_scan", ssd_k.ssd_scan_chunked),
+                recorder("flash_attention_bwd",
+                         bwd_k.flash_attention_bwd_bhsd)):
         yield seen
 
 
@@ -533,6 +569,433 @@ def time_serving_kernels(torch, device, serve, fa_check, ssd_check) -> list:
     return [fa_row, ssd_row]
 
 
+def reset_training_counts():
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    fa_k.flash_attention_bhsd.launches = 0
+    bwd_k.flash_attention_bwd_dq.launches = 0
+    bwd_k.flash_attention_bwd_dkv.launches = 0
+
+
+def training_counts() -> tuple:
+    """(flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    launches."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    return (fa_k.flash_attention_bhsd.launches,
+            bwd_k.flash_attention_bwd_dq.launches,
+            bwd_k.flash_attention_bwd_dkv.launches)
+
+
+def expected_train_counts(cfg) -> tuple:
+    """Per step: the forward kernel in each layer's forward and again in its
+    recompute (remat), each backward kernel once per layer."""
+    n = cfg.n_layers
+    return (2 * n if cfg.remat else n), n, n
+
+
+def bwd_inputs(torch, device, shape, dtype, model, seed):
+    """q, k, v, dO on the card (strided [B, S, heads, hd] views when
+    ``model``) and the forward kernel's o, lse on them."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    B, H, KV, Sq, Skv, hd, causal = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def make(heads, s):
+        if model:
+            return torch.randn((B, s, heads, hd), generator=g,
+                               device=device).to(dtype).transpose(1, 2)
+        return torch.randn((B, heads, s, hd), generator=g,
+                           device=device).to(dtype)
+    q, k, v, do = make(H, Sq), make(KV, Skv), make(KV, Skv), make(H, Sq)
+    o, lse = fa_k.flash_attention_bhsd(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
+def phase_bwd_check(torch, device) -> dict:
+    """K3 and K4 against their plain version: tests/test_kernels.py's six
+    shapes (GQA, ragged, Sq != Skv, causal and not), the model layout's
+    strided views, both dtypes, the training shape; and two runs of each
+    bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    shapes = [  # (B, H, KV, Sq, Skv, hd, causal)
+        (1, 2, 2, 128, 128, 64, True),
+        (2, 4, 2, 256, 256, 32, True),
+        (1, 4, 1, 64, 192, 64, False),
+        (1, 2, 2, 100, 100, 64, True),
+        (2, 3, 1, 77, 130, 16, False),
+        (1, 8, 2, 256, 100, 64, True),
+        (1, 4, 2, 200, 70, 128, True),
+        (1, 4, 4, 96, 96, 80, False),
+        train_attention_shape(),
+    ]
+    cases, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    for i, shape in enumerate(shapes):
+        for dt in ("float32", "bfloat16"):
+            model = i % 2 == 1 or shape == train_attention_shape()
+            q, k, v, o, lse, do = bwd_inputs(torch, device, shape,
+                                             getattr(torch, dt), model,
+                                             seed=400 + i)
+            causal = shape[-1]
+            before = training_counts()[1:]
+            got = bwd_k.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
+                                                 causal=causal)
+            again = bwd_k.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
+                                                   causal=causal)
+            torch.cuda.synchronize()
+            if training_counts()[1:] != (before[0] + 2, before[1] + 2):
+                raise AssertionError("bwd_check: the backward wrappers did "
+                                     "not launch their kernels")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"bwd_check: two runs differ at "
+                                     f"{shape} {dt}")
+            want = bwd_k.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                   causal=causal)
+            what = f"flash_attention_bwd {dt} {shape}"
+            err = max(within(g, w, BWD_TOL[dt], f"{what} d{n}")
+                      for n, g, w in zip("qkv", got, want))
+            max_err[dt] = max(max_err[dt], err)
+            cases.append([*shape, model, dt, err])
+            del q, k, v, o, lse, do, got, again, want
+    emit("kernel_check", kernel="flash_attention_bwd (dq, dkv)",
+         cases=len(cases), repeat_runs="bit-equal dq, dk, dv",
+         tolerance={d: f"{t} abs + {t} rel, dq dk dv"
+                    for d, t in BWD_TOL.items()},
+         max_abs_err=max_err, detail=cases)
+    return {"max_abs_err": max(max_err.values())}
+
+
+def train_attention_shape() -> tuple:
+    from repro_torch.configs.base import get_config
+    cfg = get_config(TRAIN["arch"])
+    return (TRAIN["batch"], cfg.n_heads, cfg.kv_heads, TRAIN["seq"],
+            TRAIN["seq"], cfg.hd, True)
+
+
+def smoke_train(torch, device, fx, cfg, supervised=None):
+    """The three golden steps on the card; with ``supervised`` (a
+    directory) under TrainSupervisor + CheckpointManager, a fault injected
+    before step 2.  Returns ([(step, metrics)] in the order run, the final
+    parameters, the (fwd, dq, dkv) launches, the restarts)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.convert import load_reference_params, tree_from_flat
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.api import build
+    from repro_torch.runtime import TrainSupervisor
+    n = len(fx["loss"])
+    api = build(cfg, device=device)
+    load_reference_params(api.model, tree_from_flat(fx, "param:"))
+    opt = make_optimizer(cfg, total_steps=n)
+    step_fn = make_train_step(api, opt)
+    params = dict(api.model.named_parameters())
+    state = {"params": params, "opt": opt.init(params)}
+    log, armed = [], {"fault": supervised is not None}
+
+    def one(state, i):
+        if armed["fault"] and i == 2:
+            armed["fault"] = False
+            raise RuntimeError("injected fault")
+        batch = {k: torch.from_numpy(fx[k][i]).to(device)
+                 for k in ("tokens", "labels")}
+        p, o, m = step_fn(state["params"], state["opt"], batch)
+        log.append((i, {k: float(v) for k, v in m.items()}))
+        return {"params": p, "opt": o}
+
+    reset_training_counts()
+    if supervised is None:
+        for i in range(n):
+            state = one(state, i)
+        restarts = 0
+    else:
+        sup = TrainSupervisor(CheckpointManager(supervised), save_every=1)
+        state, _ = sup.run(state, one, n)
+        restarts = sup.restarts
+    return log, state["params"], training_counts(), restarts
+
+
+def phase_train_golden(torch, np, device) -> None:
+    """Three training steps of the TinyLlama smoke config on the card, with
+    the kernels, against the JAX reference's; then the same steps under the
+    supervisor with a fault at step 2: the losses must be bit-equal."""
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import export_params, tree_from_flat
+
+    fx = dict(np.load(GOLDEN_TRAIN))
+    cfg = dataclasses.replace(get_config(TRAIN["arch"], smoke=True),
+                              attn_impl="flash", param_dtype="float32")
+    log, params, counts, _ = smoke_train(torch, device, fx, cfg)
+    n = len(fx["loss"])
+    errs = {}
+    for k in ("loss", "grad_norm", "lr"):
+        got = np.array([m[k] for _, m in log])
+        errs[k] = float(np.max(np.abs(got - fx[k]) / np.abs(fx[k])))
+        if not np.isfinite(got).all() or errs[k] > TRAIN_GOLDEN_TOL[k]:
+            raise AssertionError(f"train_golden: {k} {got.tolist()} differs "
+                                 f"from the JAX reference {fx[k].tolist()} "
+                                 f"by {errs[k]} relative")
+    want = tree_from_flat(fx, "final:")
+    got = export_params(params)
+    tol = TRAIN_GOLDEN_TOL["params"]
+    p_err = 0.0
+    for key, w, g in _paired_leaves(want, got):
+        d = np.abs(g - w)
+        if (d > tol + tol * np.abs(w)).any():
+            raise AssertionError(f"train_golden: parameter {key} after {n} "
+                                 f"steps differs by {float(d.max())}")
+        p_err = max(p_err, float(d.max()))
+    per_step = expected_train_counts(cfg)
+    if counts != tuple(n * c for c in per_step):
+        raise AssertionError(f"train_golden: launches {counts}, expected "
+                             f"{n} x {per_step}")
+    with tempfile.TemporaryDirectory() as tmp:
+        replay, _, _, restarts = smoke_train(torch, device, fx, cfg,
+                                             supervised=tmp)
+    clean = {i: m["loss"] for i, m in log}
+    if restarts != 1 or [i for i, _ in replay] != [0, 1, 2] or \
+            any(m["loss"] != clean[i] for i, m in replay):
+        raise AssertionError(f"train_golden: replay after the fault "
+                             f"{replay} != uninterrupted {clean}")
+    emit("train_golden", config="tinyllama smoke, attn_impl=flash, float32",
+         steps=n, batch=int(fx["tokens"].shape[1]),
+         seq=int(fx["tokens"].shape[2]),
+         loss=[m["loss"] for _, m in log],
+         rel_err=errs, params_max_abs_err=p_err,
+         tolerance=TRAIN_GOLDEN_TOL,
+         launches={"flash_attention_fwd": counts[0],
+                   "flash_attention_bwd_dq": counts[1],
+                   "flash_attention_bwd_dkv": counts[2]},
+         replay={"fault_before_step": 2, "restarts": restarts,
+                 "steps_run": [i for i, _ in replay],
+                 "losses_bit_equal": True})
+
+
+def _paired_leaves(want, got, prefix=""):
+    for k, w in want.items():
+        if isinstance(w, dict):
+            yield from _paired_leaves(w, got[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", w, got[k]
+
+
+def loss_and_grads(torch, api, batch):
+    """(loss, {name: grad}) of one forward and backward."""
+    params = dict(api.model.named_parameters())
+    loss = api.loss(batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def grad_distance(torch, got, want) -> dict:
+    """max over leaves of |got - want| / |want| in 2-norm, and the loss's
+    relative difference."""
+    (l_g, g_g), (l_w, g_w) = got, want
+    worst, leaf = 0.0, None
+    for name, w in g_w.items():
+        d = float(torch.linalg.vector_norm((g_g[name] - w).float())
+                  / torch.linalg.vector_norm(w.float()).clamp_min(1e-30))
+        if d > worst:
+            worst, leaf = d, name
+    return {"loss_rel_err": abs(float(l_g) - float(l_w)) / abs(float(l_w)),
+            "grad_max_rel_2norm_err": worst, "worst_leaf": leaf}
+
+
+def phase_train(torch, device) -> dict:
+    """TinyLlama-1.1B at full width and depth, random weights from a seed,
+    five AdamW steps with the kernels (the main path).  Checks: finite
+    losses and gradient norms; the launches per step; each kernel's first
+    call on the path against its plain version; then one step's loss and
+    gradients against the plain path, in bf16 (ungated, beside a second
+    plain implementation) and with the same weights in float32 (gated)."""
+    from repro_torch.configs.base import ShapeCell, get_config
+    from repro_torch.data import SyntheticLMDataset, to_device
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.api import build
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), attn_impl="flash")
+    shape = ShapeCell("train", "train", TRAIN["seq"], TRAIN["batch"])
+    t0 = time.perf_counter()
+    api = build(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(TRAIN["param_seed"]))
+    opt = make_optimizer(cfg, total_steps=TRAIN["steps"])
+    step_fn = make_train_step(api, opt)
+    params = dict(api.model.named_parameters())
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    ds = SyntheticLMDataset(cfg, shape, seed=TRAIN["data_seed"])
+    batches = [to_device(ds.get_batch(i), device)
+               for i in range(TRAIN["steps"])]
+
+    torch.cuda.reset_peak_memory_stats()
+    steps, per_step = [], []
+    reset_training_counts()                  # main path starts here
+    with first_calls() as seen:
+        for i, batch in enumerate(batches):
+            c0 = training_counts()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            torch.cuda.synchronize()
+            steps.append({"step_s": time.perf_counter() - ts,
+                          "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "lr": float(m["lr"])})
+            per_step.append([a - b for a, b in zip(training_counts(), c0)])
+    counts = training_counts()               # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = list(expected_train_counts(cfg))
+    if any(c != want for c in per_step):
+        raise AssertionError(f"train: (fwd, dq, dkv) launches per step "
+                             f"{per_step}, expected {want}")
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+               for s in steps):
+        raise AssertionError(f"train: non-finite loss or grad norm {steps}")
+
+    args, kw, (o, lse) = seen["flash_attention_fwd"]
+    o_p, lse_p = fa_k.flash_attention_plain(*args, **kw)
+    on_path = {"flash_attention_fwd": max(
+        within(o, o_p, FA_TOL["bfloat16"], "train: flash_attention o"),
+        within(lse, lse_p, FA_TOL["bfloat16"], "train: flash_attention lse"))}
+    args, kw, grads = seen["flash_attention_bwd"]
+    want_g = bwd_k.flash_attention_bwd_plain(*args, **kw)
+    on_path["flash_attention_bwd"] = max(
+        within(g, w, BWD_TOL["bfloat16"], f"train: flash_attention d{n}")
+        for n, g, w in zip("qkv", grads, want_g))
+    del seen, args, kw, o, lse, o_p, lse_p, grads, want_g
+
+    # bf16, the trained weights, step 0's batch: kernel path, plain path,
+    # and the reference's non-kernel path (attn_impl="ref") as a second
+    # plain implementation
+    del state, step_fn
+    torch.cuda.empty_cache()
+    batch = batches[0]
+    kern = loss_and_grads(torch, api, batch)
+    with plain_kernels():
+        plain = loss_and_grads(torch, api, batch)
+    bf16 = grad_distance(torch, kern, plain)
+    del kern
+    api.model.cfg = dataclasses.replace(cfg, attn_impl="ref")
+    ref = loss_and_grads(torch, api, batch)
+    api.model.cfg = cfg
+    bf16["ref_path_vs_plain"] = grad_distance(torch, ref, plain)
+    del api, params, plain, ref
+    torch.cuda.empty_cache()
+
+    # the same weights in float32: rounding no longer hides a kernel fault
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    api = build(cfg32, device=device, generator=torch.Generator(
+        device=device).manual_seed(TRAIN["param_seed"]))
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    kern = loss_and_grads(torch, api, batch)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - ts
+    ts = time.perf_counter()
+    with plain_kernels():
+        plain = loss_and_grads(torch, api, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - ts
+    f32 = grad_distance(torch, kern, plain)
+    f32.update(kernel_path_s=kern_s, plain_path_s=plain_s)
+    del api, kern, plain, batches, batch
+    torch.cuda.empty_cache()
+    if f32["loss_rel_err"] > TRAIN_REL_TOL["loss"] or \
+            f32["grad_max_rel_2norm_err"] > TRAIN_REL_TOL["grad"]:
+        raise AssertionError(f"train (float32): kernel path differs from the "
+                             f"plain path: {f32}, tolerance {TRAIN_REL_TOL}")
+
+    times = [s["step_s"] for s in steps]
+    steady = statistics.median(times[1:])
+    emit("train", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, param_dtype=cfg.param_dtype, remat=cfg.remat,
+         batch=TRAIN["batch"], seq=TRAIN["seq"], init_s=init_s,
+         first_step_s=times[0], median_step_s_2_to_5=steady,
+         tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / steady,
+         steps=steps, max_memory_allocated=peak,
+         launches={"flash_attention_fwd": counts[0],
+                   "flash_attention_bwd_dq": counts[1],
+                   "flash_attention_bwd_dkv": counts[2]},
+         launches_per_step=per_step, expected_per_step=want,
+         first_call_max_abs_err=on_path, kernel_vs_plain_bf16=bf16,
+         kernel_vs_plain_float32=f32, tolerance=TRAIN_REL_TOL)
+    return {"counts": counts}
+
+
+def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
+    """K3 and K4 at the shape the training path launches them with; SDPA's
+    backward (GQA) as the one library call computing both.  K2's time at
+    that shape goes into its row (``train``) beside its serving numbers."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    shape = train_attention_shape()
+    B, H, KV, S, _, hd, causal = shape
+    q, k, v, o, lse, do = bwd_inputs(torch, device, shape, torch.bfloat16,
+                                     True, seed=500)
+    pairs = B * H * S * (S + 1) // 2          # causal (q, kv) pairs needed
+    rows = B * H * S * hd * 2                 # one bf16 [B, H, S, hd]
+    kv = B * KV * S * hd * 2
+    fwd = kernel_row(
+        "flash_attention_fwd", FA_SOURCE, FA_REPLACES, train["counts"][0],
+        fa_row["max_abs_err"],
+        statistics.median(cuda_ms(
+            lambda: fa_k.flash_attention_bhsd(q, k, v, causal=True),
+            runs=20)),
+        statistics.median(cuda_ms(
+            lambda: fa_k.flash_attention_plain(q, k, v, causal=True),
+            runs=5)),
+        2 * rows + 2 * kv + 4 * B * H * S, 4 * hd * pairs, BF16_FLOPS_PER_S,
+        statistics.median(cuda_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), runs=20)))
+    # K2's row keeps its serving-shape numbers; these are the training's
+    fa_row["train"] = {key: fwd[key] for key in (
+        "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    fa_row["train"]["shape"] = {"B": B, "H": H, "KV": KV, "Sq": S, "Skv": S,
+                                "hd": hd, "causal": causal,
+                                "dtype": "bfloat16"}
+    _, delta = bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do)
+    dq_ms = statistics.median(cuda_ms(
+        lambda: bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do), runs=20))
+    dkv_ms = statistics.median(cuda_ms(
+        lambda: bwd_k.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
+        runs=20))
+    dq_plain = statistics.median(cuda_ms(
+        lambda: bwd_k.bwd_dq_plain(q, k, v, o, lse, do), runs=5))
+    dkv_plain = statistics.median(cuda_ms(
+        lambda: bwd_k.bwd_dkv_plain(q, k, v, do, lse, delta), runs=5))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                         enable_gqa=True)
+    lib_ms = statistics.median(cuda_ms(
+        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+        runs=20))
+    common = dict(shape={"B": B, "H": H, "KV": KV, "Sq": S, "Skv": S,
+                         "hd": hd, "causal": causal, "dtype": "bfloat16"},
+                  library_call="backward of F.scaled_dot_product_attention("
+                               "is_causal=True, enable_gqa=True): one "
+                               "number for K3 + K4 together")
+    err = bwd_check["max_abs_err"]
+    # K3 reads q, o, dO, k, v, lse and writes dq, delta; K4 reads q, dO, k,
+    # v, lse, delta and writes the per-query-head dk, dv
+    dq_row = kernel_row(
+        "flash_attention_bwd_dq", BWD_SOURCE, DQ_REPLACES, train["counts"][1],
+        err, dq_ms, dq_plain, 4 * rows + 2 * kv + 2 * 4 * B * H * S,
+        6 * hd * pairs, BF16_FLOPS_PER_S, lib_ms, **common)
+    dkv_row = kernel_row(
+        "flash_attention_bwd_dkv", BWD_SOURCE, DKV_REPLACES,
+        train["counts"][2], err, dkv_ms, dkv_plain,
+        4 * rows + 2 * kv + 2 * 4 * B * H * S, 8 * hd * pairs,
+        BF16_FLOPS_PER_S, lib_ms, **common)
+    return [dq_row, dkv_row]
+
+
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -761,10 +1224,14 @@ def main() -> int:
     ssd_check = phase_ssd_check(torch, device)
     phase_cli(golden)
     full = phase_full(torch, np, device, golden)
+    bwd_check = phase_bwd_check(torch, device)
     phase_golden(torch, np, device)
     serve = phase_serve(torch, device)
+    phase_train_golden(torch, np, device)
+    train = phase_train(torch, device)
     rows = [time_lifetime_scan(torch, full, check)]
     rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
+    rows += time_training_kernels(torch, device, train, bwd_check, rows[1])
     print(json.dumps({"kernels": rows}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,5 @@
+"""Checkpointing: atomic save/restore with retention."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

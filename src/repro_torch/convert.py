@@ -50,23 +50,23 @@ def load_reference_params(model: torch.nn.Module, tree: dict) -> None:
     """Copy a reference parameter tree into ``model`` in place.
 
     ``tree`` mirrors the reference's params: nested dicts of numpy arrays,
-    with the per-layer leaves stacked as ``tree["layers"][name]`` of shape
-    ``[n_layers, ...]``; they are unstacked into ``model.layers[i]``.  Each
-    leaf is cast to its parameter's dtype: numpy has no bfloat16, so a
-    caller hands bf16 leaves over as float32, and the cast back is exact.
-    Raises ``KeyError``/``ValueError`` on a missing or extra leaf or a shape
+    with the per-layer leaves stacked under ``tree["layers"]`` with a
+    leading ``[n_layers]`` axis, at any depth (``layers/in_proj`` of the
+    Mamba-2 stack, ``layers/attn/wq`` of the dense LM); leaf ``i`` of
+    ``tree["layers"][a][b]`` goes to ``model.layers[i].a.b``.  Each leaf is
+    cast to its parameter's dtype: numpy has no bfloat16, so a caller hands
+    bf16 leaves over as float32, and the cast back is exact.  Raises
+    ``KeyError``/``ValueError`` on a missing or extra leaf or a shape
     mismatch."""
     used = set()
     for name, param in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
-            key = ("layers", parts[2])
-            arr = np.asarray(tree["layers"][parts[2]])[int(parts[1])]
+            key = ("layers", *parts[2:])
+            arr = np.asarray(_leaf(tree, key))[int(parts[1])]
         else:
-            node = tree
-            for part in parts:
-                node = node[part]
-            key, arr = tuple(parts), np.asarray(node)
+            key = tuple(parts)
+            arr = np.asarray(_leaf(tree, key))
         if tuple(arr.shape) != tuple(param.shape):
             raise ValueError(f"{name}: reference shape {arr.shape} != "
                              f"{tuple(param.shape)}")
@@ -74,19 +74,54 @@ def load_reference_params(model: torch.nn.Module, tree: dict) -> None:
         with torch.no_grad():
             param.copy_(torch.from_numpy(np.array(arr)).to(
                 param.dtype))
-    leaves = set()
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, path + (k,))
-        else:
-            leaves.add(path[:2] if path[0] == "layers" else path)
-    walk(tree, ())
+    leaves = set(_paths(tree))
     if leaves != used:
         raise KeyError(f"reference leaves not in the model: "
                        f"{sorted(leaves - used)}; model parameters not in "
                        f"the tree: {sorted(used - leaves)}")
+
+
+def export_params(model) -> dict:
+    """The inverse of :func:`load_reference_params`: the parameters of
+    ``model`` (a module, or a mapping of parameter names to tensors such as
+    their gradients or optimizer moments) as a tree of float32 numpy arrays
+    in the reference's layout, per-layer leaves stacked under ``"layers"``
+    (bf16 widens to float32 exactly)."""
+    named = (model.named_parameters() if isinstance(model, torch.nn.Module)
+             else model.items())
+    tree: dict = {}
+    stacked: dict = {}
+    for name, param in named:
+        parts = name.split(".")
+        arr = param.detach().float().cpu().numpy()
+        if parts[0] == "layers":
+            stacked.setdefault(("layers", *parts[2:]), {})[int(parts[1])] = arr
+        else:
+            _put(tree, tuple(parts), arr)
+    for key, rows in stacked.items():
+        _put(tree, key, np.stack([rows[i] for i in range(len(rows))]))
+    return tree
+
+
+def _leaf(tree, path):
+    node = tree
+    for part in path:
+        node = node[part]
+    return node
+
+
+def _put(tree, path, value):
+    for part in path[:-1]:
+        tree = tree.setdefault(part, {})
+    tree[path[-1]] = value
+
+
+def _paths(node, path=()):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _paths(v, path + (k,))
+    else:
+        yield path
 
 
 def tree_from_flat(flat, prefix: str = "param:") -> dict:

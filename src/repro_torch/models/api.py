@@ -1,14 +1,16 @@
 """Family dispatch: one surface over the ported architectures.
 
   build(cfg, device, generator) -> ModelApi (the initialised model)
+  api.loss(batch)               -> scalar (train objective)
   api.prefill(batch)            -> (logits, cache)
   api.decode(cache, token, index) -> (logits, cache)
   batch_specs(cfg, shape)       -> TensorSpec per batch entry
   make_batch(cfg, generator, shape) -> concrete synthetic batch
 
-Families ``ssm`` and ``hybrid`` are ported; the others (dense, MoE, VLM,
-audio) raise ``NotImplementedError`` (ROADMAP A9), and so does training,
-which has no entry here yet.  Tokens are int64, torch's index type (the
+Families ``dense``, ``ssm`` and ``hybrid`` are ported; the others (MoE,
+VLM, audio) raise ``NotImplementedError`` (ROADMAP A9).  Only the dense
+family trains: ``loss`` of ``ssm`` and ``hybrid`` raises, as their training
+loss waits for ROADMAP A9.  Tokens are int64, torch's index type (the
 reference uses int32).
 """
 
@@ -35,10 +37,14 @@ class ModelApi:
     model: nn.Module
     prefill_fn: Callable
     decode_fn: Callable
+    loss_fn: Callable
 
     @property
     def device(self) -> torch.device:
         return self.model.embed.device
+
+    def loss(self, batch):
+        return self.loss_fn(self.model, batch)
 
     def prefill(self, batch):
         return self.prefill_fn(self.model, batch["tokens"])
@@ -58,18 +64,28 @@ def build(cfg: ArchConfig, device=None, generator=None) -> ModelApi:
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     fam = cfg.family
+    if fam == "dense":
+        from repro_torch.models import transformer as T
+        return ModelApi(cfg, T.TransformerLM(cfg, device, generator),
+                        T.prefill, T.decode_step, T.loss_fn)
     if fam == "ssm":
         from repro_torch.models import mamba2 as M
         return ModelApi(cfg, M.MambaLM(cfg, device, generator), M.prefill,
-                        M.decode_step)
+                        M.decode_step, _no_loss)
     if fam == "hybrid":
         from repro_torch.models import hybrid as H
         return ModelApi(cfg, H.HybridLM(cfg, device, generator), H.prefill,
-                        H.decode_step)
-    if fam in ("dense", "moe", "vlm", "audio"):
+                        H.decode_step, _no_loss)
+    if fam in ("moe", "vlm", "audio"):
         raise NotImplementedError(
             f"family {fam!r} is not ported to repro_torch yet (ROADMAP A9)")
     raise ValueError(f"unknown family {fam}")
+
+
+def _no_loss(model, batch):
+    raise NotImplementedError(
+        f"the training loss of family {model.cfg.family!r} is not ported "
+        "to repro_torch yet (ROADMAP A9)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Shared model building blocks of the serving path.
+"""Shared model building blocks of the serving and training paths.
 
 Parameters live in ``nn.Module``s (``Attention``, ``MLP``) laid out as in
 the JAX package (``x @ W`` with ``W`` of shape [in, out]), so a reference

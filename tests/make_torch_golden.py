@@ -21,6 +21,16 @@ Pallas kernels, in interpret mode on the CPU) and ``param_dtype="float32"``,
 parameters from ``PRNGKey(0)``, prompt tokens from a numpy seed.  It holds
 the parameters (``param:<path>``), the tokens, the prefill logits and the
 greedy tokens.  ``--only zamba2`` writes this file alone.
+
+``tests/fixtures/torch/golden_tinyllama_train_smoke.npz``: three steps of
+the reference's training step (``launch/steps.make_train_step`` with
+``make_optimizer(cfg, total_steps=3)``) on the TinyLlama smoke config with
+``attn_impl="flash"`` (the Pallas forward and backward kernels, in
+interpret mode) and ``param_dtype="float32"``, parameters from
+``PRNGKey(0)``, batches from ``SyntheticLMDataset`` (seed 0, batch 2 x
+seq 64).  It holds the initial parameters (``param:<path>``), the batches,
+the per-step ``loss``, ``grad_norm`` and ``lr``, and the parameters after
+the last step (``final:<path>``).  ``--only train`` writes this file alone.
 """
 
 from __future__ import annotations
@@ -54,6 +64,9 @@ RUN = {"arch": "tinyllama_1_1b", "backend": "systolic", "seq": 128,
 OUT_ZAMBA2 = Path(__file__).parent / "fixtures" / "torch" / \
     "golden_zamba2_smoke.npz"
 ZAMBA2 = {"batch": 2, "prompt_len": 24, "gen": 8, "token_seed": 0}
+OUT_TRAIN = Path(__file__).parent / "fixtures" / "torch" / \
+    "golden_tinyllama_train_smoke.npz"
+TRAIN = {"batch": 2, "seq": 64, "steps": 3, "data_seed": 0}
 
 
 def flatten(tree, prefix=""):
@@ -90,6 +103,37 @@ def golden_zamba2() -> dict:
                    gen=np.int64(ZAMBA2["gen"]),
                    prefill_logits=prefill_logits,
                    greedy_tokens=np.stack(outs, 1).astype(np.int64))
+    return fixture
+
+
+def golden_train() -> dict:
+    from repro.configs.base import ShapeCell
+    from repro.data import SyntheticLMDataset
+    from repro.launch.steps import make_optimizer, make_train_step
+    from repro.models.api import build
+    cfg = dataclasses.replace(get_config("tinyllama_1_1b", smoke=True),
+                              attn_impl="flash", param_dtype="float32")
+    api = build(cfg)
+    params, _ = api.init(jax.random.PRNGKey(0))
+    opt = make_optimizer(cfg, total_steps=TRAIN["steps"])
+    step = jax.jit(make_train_step(api, opt))
+    ds = SyntheticLMDataset(
+        cfg, ShapeCell("train", "train", TRAIN["seq"], TRAIN["batch"]),
+        seed=TRAIN["data_seed"])
+    fixture = {f"param:{k}": v for k, v in flatten(params).items()}
+    state = opt.init(params)
+    batches, metrics = [], []
+    for i in range(TRAIN["steps"]):
+        batch = ds.get_batch(i)
+        batches.append(batch)
+        params, state, m = step(params, state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    fixture.update({f"final:{k}": v for k, v in flatten(params).items()})
+    fixture.update(
+        tokens=np.stack([b["tokens"] for b in batches]).astype(np.int64),
+        labels=np.stack([b["labels"] for b in batches]).astype(np.int64),
+        **{k: np.array([m[k] for m in metrics], np.float32)
+           for k in ("loss", "grad_norm", "lr")})
     return fixture
 
 
@@ -136,12 +180,15 @@ def golden_entry(n_layers: int) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 22])
-    ap.add_argument("--only", choices=["tinyllama", "zamba2"])
+    ap.add_argument("--only", choices=["tinyllama", "zamba2", "train"])
     args = ap.parse_args(argv)
-    if args.only != "tinyllama":
+    if args.only in (None, "zamba2"):
         np.savez_compressed(OUT_ZAMBA2, **golden_zamba2())
         print(f"wrote {OUT_ZAMBA2}")
-    if args.only == "zamba2":
+    if args.only in (None, "train"):
+        np.savez_compressed(OUT_TRAIN, **golden_train())
+        print(f"wrote {OUT_TRAIN}")
+    if args.only in ("zamba2", "train"):
         return
     golden = json.loads(OUT.read_text()) if OUT.exists() else {}
     golden["run"] = RUN

@@ -88,15 +88,6 @@ def test_model_layout_entry_point_matches_reference(causal):
                                rtol=2e-6)
 
 
-def test_forward_only_until_the_backward_kernels_are_ported():
-    q = torch.randn(1, 8, 2, 16, requires_grad=True)
-    k = torch.randn(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="B3"):
-        ops.flash_attention(q, k, k)
-    with torch.no_grad():
-        assert ops.flash_attention(q, k, k).shape == q.shape
-
-
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q = torch.zeros(1, 3, 4, 16)
     with pytest.raises(ValueError, match="multiple"):

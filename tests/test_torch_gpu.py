@@ -4,8 +4,10 @@
 
 This file imports neither ``jax`` nor the reference package, so it runs
 where only PyTorch is installed.  Each CUDA kernel is held against its plain
-version on the same inputs with the CPU tests' tolerances, and the serving
-path with the kernels against the JAX reference's golden fixture.
+version on the same inputs with the CPU tests' tolerances (the backward
+kernels in float32 within 1e-5, and bit-equal from run to run), and the
+serving and training paths with the kernels against the JAX reference's
+golden fixtures.
 ``python3 chip_smoke.py`` is the full on-card check.
 """
 
@@ -18,6 +20,8 @@ import torch
 
 GOLDEN = Path(__file__).parent / "fixtures" / "torch" / \
     "golden_zamba2_smoke.npz"
+GOLDEN_TRAIN = Path(__file__).parent / "fixtures" / "torch" / \
+    "golden_tinyllama_train_smoke.npz"
 
 
 @pytest.fixture
@@ -85,6 +89,72 @@ def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, tol):
     _close(y, y_p, tol)
 
 
+def _bwd_inputs(cuda, shape, dtype, seed):
+    B, H, KV, Sq, Skv, hd, causal = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Skv, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Skv, KV, hd, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    return [x.transpose(1, 2) for x in (q, k, v, do)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(2, 4, 2, 100, 130, 64, True),
+                                   (1, 6, 3, 64, 200, 128, False),
+                                   (2, 8, 1, 129, 129, 16, True),
+                                   (1, 4, 4, 200, 70, 80, True)])
+def test_flash_attention_bwd_kernels_match_plain(cuda, shape, dtype, tol):
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    causal = shape[-1]
+    q, k, v, do = _bwd_inputs(cuda, shape, dtype, seed=2)
+    o, lse = kernel.flash_attention_plain(q, k, v, causal=causal)
+    before = (kernel_bwd.flash_attention_bwd_dq.launches,
+              kernel_bwd.flash_attention_bwd_dkv.launches)
+    got = kernel_bwd.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
+                                              causal=causal)
+    torch.cuda.synchronize()
+    assert (kernel_bwd.flash_attention_bwd_dq.launches,
+            kernel_bwd.flash_attention_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    again = kernel_bwd.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
+                                                causal=causal)
+    want = kernel_bwd.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)                  # deterministic
+        _close(g, w, tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd, ops
+    q, k, v, do = _bwd_inputs(cuda, (2, 4, 2, 96, 96, 64, True),
+                              torch.float32, seed=3)
+    leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    before = (kernel.flash_attention_bhsd.launches,
+              kernel_bwd.flash_attention_bwd_dq.launches,
+              kernel_bwd.flash_attention_bwd_dkv.launches)
+    out = ops.flash_attention(*leaves, causal=True)
+    out.backward(do.transpose(1, 2))
+    assert (kernel.flash_attention_bhsd.launches,
+            kernel_bwd.flash_attention_bwd_dq.launches,
+            kernel_bwd.flash_attention_bwd_dkv.launches) == \
+        tuple(b + 1 for b in before)
+    ref = [x.detach().clone().requires_grad_() for x in leaves]
+    B, S, H, hd = ref[0].shape
+    qg = ref[0].reshape(B, S, 2, 2, hd)
+    s = torch.einsum("bqkgh,bpkh->bkgqp", qg, ref[1]) / hd ** 0.5
+    mask = torch.ones(S, S, dtype=torch.bool, device=cuda).tril()
+    p = torch.softmax(s.masked_fill(~mask, -1e30), -1)
+    o = torch.einsum("bkgqp,bpkh->bqkgh", p, ref[2]).reshape(B, S, H, hd)
+    o.backward(do.transpose(1, 2))
+    for a, b in zip(leaves, ref):
+        _close(a.grad, b.grad, 1e-5)
+
+
 @pytest.mark.gpu
 def test_serving_path_reproduces_the_golden_fixture_on_the_card(cuda):
     from repro_torch.configs.base import get_config
@@ -109,3 +179,39 @@ def test_serving_path_reproduces_the_golden_fixture_on_the_card(cuda):
                                rtol=1e-4)
     np.testing.assert_array_equal(out.tokens.cpu().numpy(),
                                   golden["greedy_tokens"])
+
+
+@pytest.mark.gpu
+def test_training_path_reproduces_the_train_golden_fixture_on_the_card(cuda):
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import (export_params, load_reference_params,
+                                     tree_from_flat)
+    from repro_torch.kernels.flash_attention import kernel_bwd
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.api import build
+    fx = dict(np.load(GOLDEN_TRAIN))
+    cfg = dataclasses.replace(get_config("tinyllama_1_1b", smoke=True),
+                              attn_impl="flash", param_dtype="float32")
+    api = build(cfg, device=cuda)
+    load_reference_params(api.model, tree_from_flat(fx, "param:"))
+    opt = make_optimizer(cfg, total_steps=len(fx["loss"]))
+    step = make_train_step(api, opt)
+    params = dict(api.model.named_parameters())
+    state = opt.init(params)
+    before = kernel_bwd.flash_attention_bwd_dq.launches
+    for i in range(len(fx["loss"])):
+        batch = {k: torch.from_numpy(fx[k][i]).to(cuda)
+                 for k in ("tokens", "labels")}
+        params, state, m = step(params, state, batch)
+        np.testing.assert_allclose(float(m["loss"]), fx["loss"][i],
+                                   rtol=1e-5)
+    assert kernel_bwd.flash_attention_bwd_dq.launches == \
+        before + len(fx["loss"]) * cfg.n_layers
+    final = tree_from_flat(fx, "final:")
+    got = export_params(params)
+    for key in ("embed", "unembed", "ln_f"):
+        np.testing.assert_allclose(got[key], final[key], atol=1e-5,
+                                   rtol=1e-5)
+    np.testing.assert_allclose(got["layers"]["attn"]["wq"],
+                               final["layers"]["attn"]["wq"], atol=1e-5,
+                               rtol=1e-5)

@@ -51,7 +51,14 @@ def test_port_imports_neither_jax_nor_reference():
                    "repro_torch.models.layers", "repro_torch.models.mamba2",
                    "repro_torch.models.hybrid",
                    "repro_torch.models.transformer",
-                   "repro_torch.models.api", "repro_torch.launch.serve"):
+                   "repro_torch.models.api", "repro_torch.launch.serve",
+                   "repro_torch.kernels.flash_attention.kernel_bwd",
+                   "repro_torch.optim", "repro_torch.optim.adamw",
+                   "repro_torch.optim.compression", "repro_torch.data",
+                   "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                   "repro_torch.checkpoint.manager", "repro_torch.runtime",
+                   "repro_torch.runtime.fault_tolerance",
+                   "repro_torch.launch.steps", "repro_torch.launch.train"):
         assert needed in mods
     code = (
         "import importlib, json, sys\n"
@@ -62,7 +69,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.__main__\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
-        "m.startswith('repro.'))\n"
+        "m.startswith('repro.') or m == 'ml_dtypes')\n"
         "print(json.dumps({'bad': bad, 'torch': 'torch' in sys.modules}))\n")
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -79,7 +86,9 @@ def test_sources_never_name_the_reference_package_in_an_import():
             if s.startswith(("import ", "from ")):
                 assert not s.startswith(("import jax", "from jax",
                                          "import repro.", "from repro.",
-                                         "import repro ", "from repro ")), \
+                                         "import repro ", "from repro ",
+                                         "import ml_dtypes",
+                                         "from ml_dtypes")), \
                     f"{path}: {s}"
 
 
@@ -163,6 +172,44 @@ def test_new_kernel_wrappers_never_fall_back_from_a_device(monkeypatch):
         mod._launcher.cache_clear()
 
 
+def test_backward_kernel_wrappers_never_fall_back(monkeypatch):
+    """The flash-attention backward passes: a CPU tensor runs the plain
+    version without asking for a compiler; any other device raises, and
+    without a compiler the launch raises too."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd
+    fa, _ = _small_kernel_inputs()
+    o, lse = fa_k.flash_attention_plain(*fa, causal=True)
+
+    def no_compiler(*a, **k):
+        raise AssertionError("the CPU path must not build or load a kernel")
+
+    with monkeypatch.context() as m:
+        m.setattr(_build, "load_library", no_compiler)
+        bwd._launchers.cache_clear()
+        before = (bwd.flash_attention_bwd_dq.launches,
+                  bwd.flash_attention_bwd_dkv.launches)
+        got = bwd.flash_attention_bwd_bhsd(*fa, o, lse, fa[0])
+        want = bwd.flash_attention_bwd_plain(*fa, o, lse, fa[0])
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert (bwd.flash_attention_bwd_dq.launches,
+                bwd.flash_attention_bwd_dkv.launches) == before
+    meta = [t.to("meta") for t in (*fa, o, lse)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bwd.flash_attention_bwd_bhsd(*meta[:5], meta[0])
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "library_path",
+                        lambda name: Path("/nonexistent") / f"{name}.so")
+    bwd._launchers.cache_clear()
+    _build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bwd._launchers()
+    bwd._launchers.cache_clear()
+
+
 def test_cpu_tensor_takes_plain_version_without_a_compiler(monkeypatch):
     from repro_torch.kernels import _build
     from repro_torch.kernels.lifetime_scan import kernel
@@ -207,9 +254,15 @@ def test_build_module_names_its_library_by_source_hash():
     assert p.parent == SRC.parent / "build" / "repro_torch_kernels"
     assert p.suffix == ".so" and p.name.startswith("lifetime_scan-")
     assert p == _build.library_path("lifetime_scan")        # deterministic
-    for name in ("lifetime_scan", "flash_attention_fwd", "ssd_scan"):
+    entries = {"lifetime_scan": ["lifetime_scan"],
+               "flash_attention_fwd": ["flash_attention_fwd"],
+               "ssd_scan": ["ssd_scan"],
+               "flash_attention_bwd": ["flash_attention_bwd_dq",
+                                       "flash_attention_bwd_dkv"]}
+    for name, fns in entries.items():
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
-        assert f'extern "C" int {name}_launch' in src
+        for fn in fns:
+            assert f'extern "C" int {fn}_launch' in src
         assert _build.library_path(name).name.startswith(f"{name}-")
     ignored = (SRC.parent / ".gitignore").read_text().split()
     assert "build/" in ignored

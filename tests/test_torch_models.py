@@ -233,5 +233,7 @@ def test_unported_branches_say_so():
     with pytest.raises(NotImplementedError, match="A9"):
         layers.attention_block(mod, tcfg, x[:, :1], positions=None,
                                stacked_cache=(x, x))
+    moe = dataclasses.replace(get_config("tinyllama_1_1b", smoke=True),
+                              family="moe")
     with pytest.raises(NotImplementedError, match="A9"):
-        build(get_config("tinyllama_1_1b", smoke=True), device="cpu")
+        build(moe, device="cpu")
