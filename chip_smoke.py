@@ -29,7 +29,8 @@ version on the card, and drives the port's two paths:
 Then it times each kernel at the shapes its path gives it.
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
-phase (``device``, ``build``, ``kernel_check`` per kernel, ``cli``,
+phase (``device``, ``build`` with each kernel's registers, spills and
+tensor-core instructions in its SASS, ``kernel_check`` per kernel, ``cli``,
 ``full``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
@@ -42,6 +43,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -237,7 +239,8 @@ def within(got, want, tol, what) -> float:
 def phase_fa_check(torch, device) -> dict:
     """K2 against its plain version: every head dim the kernel is built for
     (80 is Zamba2-2.7B's), GQA, Sq != Skv, causal and not, ragged lengths,
-    the model layout's strided views, both dtypes, and the serving shape."""
+    the model layout's strided views, both dtypes, and the serving shape;
+    in bf16 (the tensor-core kernel) two runs of each bit-equal."""
     from repro_torch.kernels.flash_attention import kernel as k
     shapes = [  # (B, H, KV, Sq, Skv, hd, causal, model layout)
         (1, 2, 2, 128, 128, 16, True, False),
@@ -267,16 +270,26 @@ def phase_fa_check(torch, device) -> dict:
             return torch.randn((B, heads, s, hd), generator=g,
                                device=device).to(dtype)
         q, kk, v = make(H, Sq), make(KV, Skv), make(KV, Skv)
+        before = k.flash_attention_bhsd.launches
         o, lse = k.flash_attention_bhsd(q, kk, v, causal=causal)
+        what = f"flash_attention {dt} {(B, H, KV, Sq, Skv, hd, causal)}"
+        repeat = dt == "bfloat16"             # the tensor-core kernel
+        if repeat:
+            o2, lse2 = k.flash_attention_bhsd(q, kk, v, causal=causal)
         torch.cuda.synchronize()
+        if repeat and not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{what}: two runs differ")
+        if k.flash_attention_bhsd.launches != before + 1 + repeat:
+            raise AssertionError(f"{what}: the wrapper did not launch")
         o_p, lse_p = k.flash_attention_plain(q, kk, v, causal=causal)
         tol = FA_TOL[dt]
-        what = f"flash_attention {dt} {(B, H, KV, Sq, Skv, hd, causal)}"
         err = max(within(o, o_p, tol, what + " o"),
                   within(lse, lse_p, tol, what + " lse"))
         max_err[dt] = max(max_err[dt], err)
         cases.append([B, H, KV, Sq, Skv, hd, causal, model, dt, err])
     emit("kernel_check", kernel="flash_attention_fwd", cases=len(cases),
+         variants={d: k._kernel_variant(getattr(torch, d)) for d in FA_TOL},
+         repeat_runs="bit-equal o, lse (bfloat16)",
          tolerance={d: f"{t} abs + {t} rel, o and lse"
                     for d, t in FA_TOL.items()},
          max_abs_err=max_err, detail=cases)
@@ -535,7 +548,7 @@ def time_serving_kernels(torch, device, serve, fa_check, ssd_check) -> list:
     fa_row = kernel_row(
         "flash_attention_fwd", FA_SOURCE, FA_REPLACES, serve["counts"][0],
         fa_check["max_abs_err"], ms, plain_ms, fa_bytes, 4 * hd * pairs,
-        BF16_FLOPS_PER_S, lib_ms,
+        BF16_FLOPS_PER_S, lib_ms, variant=fa_k._kernel_variant(bf16),
         shape={"B": B, "H": H, "KV": KV, "Sq": S, "Skv": S, "hd": hd,
                "causal": True, "dtype": "bfloat16"})
 
@@ -614,9 +627,10 @@ def bwd_inputs(torch, device, shape, dtype, model, seed):
 
 def phase_bwd_check(torch, device) -> dict:
     """K3 and K4 against their plain version: tests/test_kernels.py's six
-    shapes (GQA, ragged, Sq != Skv, causal and not), the model layout's
-    strided views, both dtypes, the training shape; and two runs of each
-    bit-equal."""
+    shapes (GQA, ragged, Sq != Skv, causal and not), every head dim the
+    kernels are built for, the model layout's strided views, both dtypes
+    (bf16 runs K4 on the tensor cores), the training shape; and two runs
+    of each bit-equal."""
     from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
     shapes = [  # (B, H, KV, Sq, Skv, hd, causal)
         (1, 2, 2, 128, 128, 64, True),
@@ -628,6 +642,9 @@ def phase_bwd_check(torch, device) -> dict:
         (1, 4, 2, 200, 70, 128, True),
         (1, 4, 4, 96, 96, 80, False),
         train_attention_shape(),
+        (1, 4, 2, 130, 130, 48, True),
+        (1, 2, 1, 70, 150, 96, False),
+        (2, 2, 2, 64, 100, 112, True),
     ]
     cases, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     for i, shape in enumerate(shapes):
@@ -659,6 +676,8 @@ def phase_bwd_check(torch, device) -> dict:
             del q, k, v, o, lse, do, got, again, want
     emit("kernel_check", kernel="flash_attention_bwd (dq, dkv)",
          cases=len(cases), repeat_runs="bit-equal dq, dk, dv",
+         dkv_variants={d: bwd_k._kernel_variant(getattr(torch, d))
+                       for d in BWD_TOL},
          tolerance={d: f"{t} abs + {t} rel, dq dk dv"
                     for d, t in BWD_TOL.items()},
          max_abs_err=max_err, detail=cases)
@@ -929,7 +948,9 @@ def phase_train(torch, device) -> dict:
 def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
     """K3 and K4 at the shape the training path launches them with; SDPA's
     backward (GQA) as the one library call computing both.  K2's time at
-    that shape goes into its row (``train``) beside its serving numbers."""
+    that shape goes into its row (``train``) beside its serving numbers.
+    K2's and K4's rows also carry ``fp32_ms``: the float32 FMA kernels on
+    float32 inputs at the training shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fa_k
@@ -960,6 +981,18 @@ def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
     fa_row["train"]["shape"] = {"B": B, "H": H, "KV": KV, "Sq": S, "Skv": S,
                                 "hd": hd, "causal": causal,
                                 "dtype": "bfloat16"}
+    # the float32 FMA kernels at the same shape (float32 inputs)
+    q32, k32, v32, o32, lse32, do32 = bwd_inputs(
+        torch, device, shape, torch.float32, True, seed=501)
+    fa_row["fp32_ms"] = statistics.median(cuda_ms(
+        lambda: fa_k.flash_attention_bhsd(q32, k32, v32, causal=True),
+        runs=10))
+    fa_row["fp32_ms_shape"] = "train"
+    _, delta32 = bwd_k.flash_attention_bwd_dq(q32, k32, v32, o32, lse32, do32)
+    dkv_fp32_ms = statistics.median(cuda_ms(
+        lambda: bwd_k.flash_attention_bwd_dkv(q32, k32, v32, do32, lse32,
+                                              delta32), runs=10))
+    del q32, k32, v32, o32, lse32, do32, delta32
     _, delta = bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do)
     dq_ms = statistics.median(cuda_ms(
         lambda: bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do), runs=20))
@@ -987,27 +1020,87 @@ def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
     dq_row = kernel_row(
         "flash_attention_bwd_dq", BWD_SOURCE, DQ_REPLACES, train["counts"][1],
         err, dq_ms, dq_plain, 4 * rows + 2 * kv + 2 * 4 * B * H * S,
-        6 * hd * pairs, BF16_FLOPS_PER_S, lib_ms, **common)
+        6 * hd * pairs, BF16_FLOPS_PER_S, lib_ms, variant="bf16 fma",
+        **common)
     dkv_row = kernel_row(
         "flash_attention_bwd_dkv", BWD_SOURCE, DKV_REPLACES,
         train["counts"][2], err, dkv_ms, dkv_plain,
         4 * rows + 2 * kv + 2 * 4 * B * H * S, 8 * hd * pairs,
-        BF16_FLOPS_PER_S, lib_ms, **common)
+        BF16_FLOPS_PER_S, lib_ms,
+        variant=bwd_k._kernel_variant(torch.bfloat16),
+        fp32_ms=dkv_fp32_ms, **common)
     return [dq_row, dkv_row]
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_mma_kernel<64>`` from the mangled name of a kernel of
+    the port (anonymous namespace, templated on dtype and head dim)."""
+    rest, name = re.sub(r"^_ZN?", "", mangled), None
+    while name is None and (m := re.match(r"\d+", rest)):
+        n = int(m.group())           # a length-prefixed identifier
+        ident, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+        if not ident.startswith("_GLOBAL__N"):    # skip the namespace
+            name = ident
+    if name is None:
+        return mangled
+    args = []
+    if rest.startswith("I"):
+        head = rest.split("EEv")[0]
+        if head.startswith("If"):
+            args.append("float")
+        elif head.startswith("I13__nv_bfloat16"):
+            args.append("bf16")
+        args += re.findall(r"Li(\d+)E", head)
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def kernel_table(lib: Path) -> dict:
+    """{kernel: registers, spill bytes and tensor-core instructions} of one
+    built library: ptxas's ``-v`` log beside it, and its SASS by the CUDA
+    toolkit's ``cuobjdump -sass`` (``HMMA``/``HGMMA`` lines)."""
+    from repro_torch.kernels import _build
+    table, name = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = kernel_label(m.group(1))
+            table[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", line)):
+            table[name]["spill_stores"] = int(m.group(1))
+            table[name]["spill_loads"] = int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            table[name]["registers"] = int(m.group(1))
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    name = None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = kernel_label(m.group(1))
+            table.setdefault(name, {})["tensor_core_instructions"] = 0
+        elif name and re.search(r"\bHG?MMA\.", line):
+            table[name]["tensor_core_instructions"] += 1
+    return table
 
 
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import KERNEL_HEAD_DIMS
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:   # one nvcc per source
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
-    emit("build", kernels=list(SOURCES), seconds=time.perf_counter() - t0,
-         ptxas={name: [ln.strip() for ln in
-                       lib.with_suffix(".log").read_text().splitlines()
-                       if "registers" in ln or "spill" in ln]
-                for name, lib in libs.items()})
+    seconds = time.perf_counter() - t0
+    tables = {name: kernel_table(lib) for name, lib in libs.items()}
+    # the bf16 K2 and K4 must run on the tensor cores
+    mma = {k: v.get("tensor_core_instructions", 0)
+           for t in tables.values() for k, v in t.items() if "_mma_" in k}
+    if len(mma) != 2 * len(KERNEL_HEAD_DIMS) or not all(mma.values()):
+        raise AssertionError(f"build: tensor-core kernels and their HMMA "
+                             f"counts {mma}")
+    emit("build", kernels=list(SOURCES), seconds=seconds,
+         per_kernel=tables)
 
 
 def check_report_against_golden(report, entry) -> int:

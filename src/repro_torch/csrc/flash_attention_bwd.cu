@@ -17,9 +17,7 @@
 // What bounds them on an H100: operations.  Per causal (q, kv) pair pass A
 // does three hd-long products (s, dp, dq) and pass B four (s, dp, dv, dk):
 // 6 * hd and 8 * hd flops against a few bytes, far above the card's ~295
-// flop/B balance point in bf16.  This first version does the products with
-// fp32 FMAs on the CUDA cores (no mma), as the forward kernel does, so it sits
-// well above the tensor-core bound.  Simple and right first.
+// flop/B balance point in bf16.
 //
 // Design.  The TPU grid walks (bh, q block, kv block) with the innermost axis
 // in order and the accumulators in VMEM.  Here one block of 128 threads owns
@@ -30,17 +28,40 @@
 //           as in the reference) and writes it once to `delta`, which pass B
 //           reads rather than recomputing it per q tile.
 //   pass B: block (kv tile, bh) loops over q tiles at or above the diagonal.
+//
+// Pass A, both dtypes, and pass B in float32 do their products with fp32
+// FMAs on the CUDA cores (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`).
 // Tiles are staged in shared memory as fp32 with odd row pitches (HD + 1,
 // 65), which keep the column walks free of bank conflicts.  Thread (ty, tx) =
 // (t / 8, t % 8) owns tile rows ty + 16 r (r < 4) and the columns tx + 8 c of
 // the 64 x 64 score tile and of the HD-wide accumulators, so a row's eight
-// threads are adjacent lanes.  Rows past Sq or Skv load as zeros, and exp is
-// taken only where the mask keeps the pair: a masked or padded pair
-// contributes exactly 0, never 0 * inf or 0 * NaN.  Templated on the head dim
-// (multiples of 16 up to 128) and on the element type (fp32, bf16).
+// threads are adjacent lanes.
+//
+// Pass B in bfloat16 runs on the tensor cores (`flash_bwd_dkv_mma_kernel`,
+// mma.sync m16n8k16 with ldmatrix and cp.async from mma_bf16.cuh).  Each of
+// the 4 warps owns 16 kv rows of the block's 64; K and V stay in shared
+// memory, and Q, dO, lse and delta tiles of 32 q rows stream through a
+// two-stage cp.async ring.  Per q tile: S^T = K Q^T and dP^T = V dO^T on the
+// tensor cores; P^T = exp(scale S^T - lse) and dS^T = P^T (dP^T - delta) on
+// the fragments, for kept pairs only (a warp whose kv rows all lie past the
+// tile's last q row skips the tile); then dV += P^T dO and dK += dS^T Q with
+// P^T and dS^T in registers as A operands (dO and Q by ldmatrix.trans).  dK
+// is scaled once in the epilogue.  P^T and dS^T go in as a bf16 high part
+// plus a bf16 low part (two products each): D12 rounds each query head's dk
+// and dv to bf16 before the GQA sum, and a single bf16 rounding of P and dS
+// moves the fp32 sums far enough that several of the 8 per-head roundings
+// flip together: at TinyLlama's shape (S 2048, G = 8) dv then left the bf16
+// tolerance of the check against the plain version.
+//
+// In every kernel rows past Sq or Skv load as zeros, and exp is taken only
+// where the mask keeps the pair: a masked or padded pair contributes exactly
+// 0, never 0 * inf or 0 * NaN.  Templated on the head dim (multiples of 16 up
+// to 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -382,6 +403,194 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Pass B in bfloat16 on the tensor cores: per-query-head dk and dv for one
+// (64-row kv tile, bh).
+constexpr int kQRows = 32;          // q rows per streamed tile
+
+template <int HD>
+constexpr size_t dkv_mma_smem_bytes() {  // Ks, Vs; Qs, dOs, lse, delta x 2
+  return sizeof(__nv_bfloat16) * (2 * kBlock + 4 * kQRows) *
+             repro_mma::pitch<HD>() +
+         sizeof(float) * 4 * kQRows;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int KV,
+                         int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+                         Strides dos, float scale, int causal) {
+  using namespace repro_mma;
+  constexpr int P = pitch<HD>();
+  constexpr int QT = kQRows;
+  constexpr int KS = HD / 16;           // k-steps of K Q^T over hd
+  constexpr int NQ = QT / 8;            // n-tiles of a score row block
+  constexpr int NO = HD / 8;            // n-tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kBlock * P;
+  bf16* Qs = Vs + kBlock * P;           // [2][QT][P]
+  bf16* dOs = Qs + 2 * QT * P;          // [2][QT][P]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * QT * P);   // [2][QT]
+  float* Ds = Ls + 2 * QT;                                  // [2][QT]
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / KV);
+  const int kv0 = blockIdx.x * kBlock;
+  const int kw0 = warp * 16;            // the warp's first row in the tile
+  const int krow[2] = {kv0 + kw0 + g, kv0 + kw0 + g + 8};
+  const long long qrow0 = static_cast<long long>(bh) * Sq;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  const int n_tiles = (Sq + QT - 1) / QT;
+  // q tiles at or above the diagonal: q_pos >= kv_pos >= kv0
+  const int first = causal ? kv0 / QT : 0;
+
+  auto load_q_tile = [&](int stage, int tile) {
+    const int q0 = tile * QT;
+    cp_tile<HD, QT, kThreads>(Qs + stage * QT * P, qb, qs.s, q0, Sq);
+    cp_tile<HD, QT, kThreads>(dOs + stage * QT * P, dob, dos.s, q0, Sq);
+    for (int i = threadIdx.x; i < 2 * QT; i += kThreads) {
+      const int r = i % QT;
+      const bool ok = q0 + r < Sq;
+      const float* src = (i < QT ? lse : delta) + qrow0 + (ok ? q0 + r : 0);
+      cp_async_4((i < QT ? Ls : Ds) + stage * QT + r, src, ok);
+    }
+  };
+
+  cp_tile<HD, kBlock, kThreads>(Ks, k + b * ks.b + kvh * ks.h, ks.s, kv0,
+                                Skv);
+  cp_tile<HD, kBlock, kThreads>(Vs, v + b * vs.b + kvh * vs.h, vs.s, kv0,
+                                Skv);
+  if (first < n_tiles) load_q_tile(0, first);
+  cp_async_commit();
+
+  float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.0f;
+  const float sl2 = scale * kLog2e;
+
+  for (int tile = first; tile < n_tiles; ++tile) {
+    const int st = (tile - first) & 1;
+    if (tile + 1 < n_tiles) {           // next q tile into the other stage
+      load_q_tile(st ^ 1, tile + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                    // this stage (and K, V) landed
+    const bf16* Qt = Qs + st * QT * P;
+    const bf16* dOt = dOs + st * QT * P;
+    const float* Lt = Ls + st * QT;
+    const float* Dt = Ds + st * QT;
+
+    const int q0 = tile * QT;
+    // a warp whose kv rows all lie past the tile's last q row keeps nothing
+    if (!causal || q0 + QT - 1 >= kv0 + kw0) {
+      // S^T = K Q^T and dP^T = V dO^T: rows kv, columns q
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned ka[4], va[4];
+        ldsm_x4(ka, a_rows<P>(Ks, kw0, kk * 16, lane));
+        ldsm_x4(va, a_rows<P>(Vs, kw0, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          unsigned bq[4], bo[4];
+          ldsm_x4(bq, b_rows_nk<P>(Qt, np * 16, kk * 16, lane));
+          ldsm_x4(bo, b_rows_nk<P>(dOt, np * 16, kk * 16, lane));
+          mma_16816(s[2 * np], ka, bq[0], bq[1]);
+          mma_16816(s[2 * np + 1], ka, bq[2], bq[3]);
+          mma_16816(dp[2 * np], va, bo[0], bo[1]);
+          mma_16816(dp[2 * np + 1], va, bo[2], bo[3]);
+        }
+      }
+
+      // P^T and dS^T on the kept pairs; exactly 0 elsewhere
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = j * 8 + 2 * t4 + (e & 1);
+          const int qpos = q0 + qi;
+          const int kpos = krow[e >> 1];
+          const bool keep =
+              qpos < Sq && kpos < Skv && (!causal || qpos >= kpos);
+          float p = 0.0f, ds = 0.0f;
+          if (keep) {
+            p = exp2f(s[j][e] * sl2 - Lt[qi] * kLog2e);
+            ds = p * (dp[j][e] - Dt[qi]);
+          }
+          s[j][e] = p;
+          dp[j][e] = ds;
+        }
+
+      // dV += P^T dO, dK += dS^T Q: A (high and low bf16 parts) from the
+      // fragments, B by ldmatrix.trans
+#pragma unroll
+      for (int kt = 0; kt < NQ / 2; ++kt) {
+        unsigned ph[4], pl[4], dh[4], dl[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {     // a_i: n-tile 2kt + i/2, rows i%2
+          const int j = 2 * kt + i / 2, e = 2 * (i % 2);
+          split_bf16(s[j][e], s[j][e + 1], ph[i], pl[i]);
+          split_bf16(dp[j][e], dp[j][e + 1], dh[i], dl[i]);
+        }
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          unsigned bo[4], bq[4];
+          ldsm_x4_trans(bo, b_rows_kn<P>(dOt, kt * 16, np * 16, lane));
+          ldsm_x4_trans(bq, b_rows_kn<P>(Qt, kt * 16, np * 16, lane));
+          mma_16816(acc_v[2 * np], ph, bo[0], bo[1]);
+          mma_16816(acc_v[2 * np + 1], ph, bo[2], bo[3]);
+          mma_16816(acc_v[2 * np], pl, bo[0], bo[1]);
+          mma_16816(acc_v[2 * np + 1], pl, bo[2], bo[3]);
+          mma_16816(acc_k[2 * np], dh, bq[0], bq[1]);
+          mma_16816(acc_k[2 * np + 1], dh, bq[2], bq[3]);
+          mma_16816(acc_k[2 * np], dl, bq[0], bq[1]);
+          mma_16816(acc_k[2 * np + 1], dl, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();                    // this stage is free for reuse
+  }
+  cp_async_wait<0>();                   // K, V when no q tile was kept
+
+  const long long krow0 = static_cast<long long>(bh) * Skv;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (krow[r] >= Skv) continue;
+    bf16* dk_row = dk + (krow0 + krow[r]) * HD + 2 * t4;
+    bf16* dv_row = dv + (krow0 + krow[r]) * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<unsigned*>(dk_row + n * 8) = pack_bf16(
+          acc_k[n][2 * r] * scale, acc_k[n][2 * r + 1] * scale);
+      *reinterpret_cast<unsigned*>(dv_row + n * 8) =
+          pack_bf16(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;
   void *delta, *dq, *dk, *dv;
@@ -426,12 +635,40 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDq, typename T>
+template <int HD>
+int launch_dkv_mma(const Args& a) {
+  using T = __nv_bfloat16;
+  constexpr size_t shmem = dkv_mma_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Skv + kBlock - 1) / kBlock, a.B * a.H);
+  flash_bwd_dkv_mma_kernel<HD><<<grid, kThreads, shmem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.KV, a.Sq, a.Skv,
+      a.qs, a.ks, a.vs, a.dos, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kernel 0: pass A in float32; 1: pass A in bfloat16 (both FMA); 2: pass B
+// in float32 (FMA); 3: pass B in bfloat16 (tensor cores)
+template <int KERNEL, int HD>
+int launch_one(const Args& a) {
+  if constexpr (KERNEL == 0) return launch_dq<float, HD>(a);
+  else if constexpr (KERNEL == 1) return launch_dq<__nv_bfloat16, HD>(a);
+  else if constexpr (KERNEL == 2) return launch_dkv<float, HD>(a);
+  else return launch_dkv_mma<HD>(a);
+}
+
+template <int KERNEL>
 int dispatch_hd(const Args& a, int hd) {
   switch (hd) {
-#define REPRO_FA_BWD_CASE(D)                                   \
-  case D:                                                      \
-    return kDq ? launch_dq<T, D>(a) : launch_dkv<T, D>(a);
+#define REPRO_FA_BWD_CASE(D) \
+  case D:                    \
+    return launch_one<KERNEL, D>(a);
     REPRO_FA_BWD_CASE(16)
     REPRO_FA_BWD_CASE(32)
     REPRO_FA_BWD_CASE(48)
@@ -446,13 +683,14 @@ int dispatch_hd(const Args& a, int hd) {
   }
 }
 
-template <bool kDq>
-int dispatch(const Args& a, int hd, int dtype) {
+// the pass's kernel KERNEL0 for code 0, KERNEL0 + 1 for code 1
+template <int KERNEL0>
+int dispatch(const Args& a, int hd, int code) {
   if (a.B <= 0 || a.H <= 0 || a.KV <= 0 || a.Sq <= 0 || a.Skv <= 0 ||
       a.H % a.KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return dispatch_hd<kDq, float>(a, hd);
-  if (dtype == 1) return dispatch_hd<kDq, __nv_bfloat16>(a, hd);
+  if (code == 0) return dispatch_hd<KERNEL0>(a, hd);
+  if (code == 1) return dispatch_hd<KERNEL0 + 1>(a, hd);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -466,9 +704,9 @@ int dispatch(const Args& a, int hd, int dtype) {
 //   lse, delta  f32 [B, H, Sq]      contiguous
 //   dq          T [B, H, Sq, hd]    contiguous
 //   dk, dv      T [B, H, Skv, hd]   contiguous, per query head
-// dtype 0 = float32, 1 = bfloat16; hd a multiple of 16 up to 128.
+// hd a multiple of 16 up to 128.
 
-// Pass A: writes dq and delta.
+// Pass A: writes dq and delta.  dtype 0 = float32, 1 = bfloat16.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, int B, int H,
@@ -481,20 +719,23 @@ extern "C" int flash_attention_bwd_dq_launch(
                Sq, Skv, {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
                {osb, osh, oss}, {dsb, dsh, dss}, scale, causal,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, hd, dtype);
+  return dispatch<0>(a, hd, dtype);
 }
 
-// Pass B: reads delta (written by pass A), writes dk and dv.
+// Pass B: reads delta (written by pass A), writes dk and dv.  kernel 0 = the
+// float32 FMA kernel (T = float), 1 = the bfloat16 tensor-core kernel (T =
+// bfloat16; q, k, v, dout 16-byte aligned with strides that are multiples of
+// 8, which the wrapper checks).
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
     int KV, int Sq, int Skv, int hd, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long dsb, long long dsh, long long dss,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int kernel, void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta),
                nullptr, dk, dv, B, H, KV, Sq, Skv, {qsb, qsh, qss},
                {ksb, ksh, kss}, {vsb, vsh, vss}, {0, 0, 0}, {dsb, dsh, dss},
                scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, hd, dtype);
+  return dispatch<2>(a, hd, kernel);
 }

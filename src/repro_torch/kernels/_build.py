@@ -2,9 +2,10 @@
 
 Each ``<name>.cu`` exposes a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The
-library's file name carries a hash of the source and the flags, so an edit
-rebuilds and an unchanged source is reused.  Nothing is built when this
-module is imported: the first kernel launch asks for its library.
+library's file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged source
+is reused.  Nothing is built when this module is imported: the first kernel
+launch asks for its library.
 
 Libraries go to ``build/repro_torch_kernels/`` at the root of the source
 checkout.
@@ -47,10 +48,12 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source text (whether or not it has been built yet)."""
-    src = CSRC_DIR / f"{name}.cu"
+    source text and headers (whether or not it has been built yet)."""
+    text = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

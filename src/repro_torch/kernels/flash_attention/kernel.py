@@ -13,12 +13,19 @@ Scores are ``(q * hd**-0.5) @ k^T`` in float32; masked scores are -1e30
 whatever Sq and Skv are.
 
 :func:`flash_attention_bhsd` is the wrapper: on CUDA tensors it launches
-the hand-written kernel (``csrc/flash_attention_fwd.cu``, built at first
+a hand-written kernel (``csrc/flash_attention_fwd.cu``, built at first
 use) or raises; on CPU tensors it runs :func:`flash_attention_plain`, the
 same function in stock torch ops, which is also what the tests and the
 on-card comparison hold the kernel against.  The wrapper takes any strides
 whose last dimension is contiguous, so the model layout [B, S, H, hd] goes
 in as a transposed view without a copy.
+
+The dtype alone chooses the CUDA kernel (:func:`_kernel_variant`): float32
+runs on fp32 FMAs (``"fp32 fma"``), bfloat16 on the tensor cores
+(``"bf16 mma"``, which rounds the probabilities to bfloat16 before P . V).
+The tensor-core kernel moves 16-byte rows, so its inputs must start on a
+16-byte boundary with strides that are multiples of 8 elements
+(:func:`_mma_layout_error`); a call that breaks this raises.
 """
 
 from __future__ import annotations
@@ -34,8 +41,36 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 # head dims the CUDA kernel is instantiated for (templated on hd)
 KERNEL_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535       # one grid row per (batch, head)
+# the CUDA kernel each dtype runs, and its code in the launcher's `kernel`
+_VARIANTS = {torch.float32: "fp32 fma", torch.bfloat16: "bf16 mma"}
+_KERNEL_CODES = {"fp32 fma": 0, "bf16 mma": 1}
+
+
+def _kernel_variant(dtype) -> str:
+    """The CUDA kernel that inputs of ``dtype`` run, in the forward and in
+    the dk/dv pass: ``"fp32 fma"`` for float32, ``"bf16 mma"`` (tensor
+    cores) for bfloat16."""
+    if dtype not in _VARIANTS:
+        raise TypeError(f"no flash-attention kernel for {dtype}")
+    return _VARIANTS[dtype]
+
+
+def _mma_layout_error(*tensors):
+    """Why the tensor-core kernels cannot take these [B, heads, S, hd]
+    tensors, or None.  cp.async and ldmatrix move 16-byte rows: each tensor
+    must start on a 16-byte boundary and its batch, head and row strides
+    must be multiples of 8 elements (a dimension of size 1 is never
+    strided)."""
+    for i, t in enumerate(tensors):
+        if t.data_ptr() % 16:
+            return (f"input {i} of the bf16 tensor-core kernel does not "
+                    f"start on a 16-byte boundary")
+        if any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3])
+               if n > 1):
+            return (f"input {i} of the bf16 tensor-core kernel has strides "
+                    f"{tuple(t.stride())}, not multiples of 8 elements")
+    return None
 
 
 def flash_attention_plain(q, k, v, *, causal=True):
@@ -70,7 +105,7 @@ def _check(q, k, v):
     if H % k.shape[1]:
         raise ValueError(f"{H} query heads are not a multiple of "
                          f"{k.shape[1]} kv heads")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _VARIANTS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
@@ -84,7 +119,7 @@ def _launcher():
     fn.argtypes = ([ptr, ptr, ptr, ptr, ptr]          # q k v o lse
                    + [i32] * 6                        # B H KV Sq Skv hd
                    + [i64] * 12                       # q k v o strides
-                   + [ctypes.c_float, i32, i32, ptr])  # scale causal dt st
+                   + [ctypes.c_float, i32, i32, ptr])  # scale causal kernel st
     fn.restype = ctypes.c_int
     return fn
 
@@ -109,6 +144,9 @@ def flash_attention_bhsd(q, k, v, *, causal=True):
                          f"({MAX_GRID_Y} batch-heads)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dimension of q/k/v must be contiguous")
+    variant = _kernel_variant(q.dtype)
+    if variant == "bf16 mma" and (err := _mma_layout_error(q, k, v)):
+        raise ValueError(err)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     if B * H * Sq == 0 or Skv == 0:
@@ -120,7 +158,7 @@ def flash_attention_bhsd(q, k, v, *, causal=True):
                      lse.data_ptr(), B, H, KV, Sq, Skv, hd,
                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                      *o.stride()[:3], 1.0 / math.sqrt(hd), int(causal),
-                     _DTYPES[q.dtype], stream)
+                     _KERNEL_CODES[variant], stream)
     flash_attention_bhsd.launches += 1
     if err != 0:
         raise RuntimeError(

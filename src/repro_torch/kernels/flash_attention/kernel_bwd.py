@@ -32,6 +32,13 @@ the other.  :func:`flash_attention_bwd_plain` is the whole function in
 stock torch ops, which the tests and the on-card comparison hold the
 kernels against.  The wrappers take any strides whose last dimension is
 contiguous.
+
+Pass A runs fp32 FMAs in both dtypes.  For pass B the dtype alone chooses
+the CUDA kernel (:func:`_kernel_variant`, the forward's choice): float32
+runs on fp32 FMAs (``"fp32 fma"``), bfloat16 on the tensor cores (``"bf16
+mma"``, which feeds p and ds to its two products as a bfloat16 high plus a
+bfloat16 low part), whose inputs must start on a 16-byte boundary with
+strides that are multiples of 8 elements; a call that breaks this raises.
 """
 
 from __future__ import annotations
@@ -43,9 +50,9 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import (KERNEL_HEAD_DIMS,
-                                                        MAX_GRID_Y, NEG_INF,
-                                                        _check)
+from repro_torch.kernels.flash_attention.kernel import (
+    _KERNEL_CODES, KERNEL_HEAD_DIMS, MAX_GRID_Y, NEG_INF, _check,
+    _kernel_variant, _mma_layout_error)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -157,7 +164,7 @@ def _cuda_ready(q, k, tensors) -> bool:
 def _launchers():
     lib = _build.load_library("flash_attention_bwd")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    tail = [ctypes.c_float, i32, i32, ptr]            # scale causal dtype st
+    tail = [ctypes.c_float, i32, i32, ptr]      # scale causal dtype/kernel st
     dq = lib.flash_attention_bwd_dq_launch
     dq.argtypes = ([ptr] * 8 + [i32] * 6 + [i64] * 15 + tail)
     dkv = lib.flash_attention_bwd_dkv_launch
@@ -204,6 +211,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True):
         raise ValueError("delta must be float32 shaped like lse")
     if not _cuda_ready(q, k, (q, k, v, do)):
         return bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
+    variant = _kernel_variant(q.dtype)
+    if variant == "bf16 mma" and (err := _mma_layout_error(q, k, v, do)):
+        raise ValueError(err)
     B, H, Sq, hd = q.shape
     _, KV, Skv, _ = k.shape
     lse, delta = lse.contiguous(), delta.contiguous()
@@ -217,7 +227,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal=True):
                      dv.data_ptr(), B, H, KV, Sq, Skv, hd,
                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                      *do.stride()[:3], 1.0 / math.sqrt(hd), int(causal),
-                     _DTYPES[q.dtype], stream)
+                     _KERNEL_CODES[variant], stream)
     flash_attention_bwd_dkv.launches += 1
     _raise_on(err, "flash_attention_bwd_dkv")
     return dk, dv

@@ -128,6 +128,80 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, shape, dtype, tol):
         _close(g, w, tol)
 
 
+# every head dim the kernels are built for, GQA, ragged Sq and Skv, Sq = 1,
+# causal and not: (B, H, KV, Sq, Skv, hd, causal)
+MMA_SHAPES = [(2, 4, 2, 100, 130, 16, True),
+              (1, 6, 3, 64, 200, 32, False),
+              (2, 8, 2, 129, 129, 48, True),
+              (1, 4, 1, 1, 50, 64, False),
+              (2, 4, 4, 200, 70, 80, True),
+              (1, 6, 2, 77, 77, 96, False),
+              (1, 4, 2, 33, 160, 112, True),
+              (2, 2, 1, 150, 150, 128, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MMA_SHAPES,
+                         ids=[f"hd{s[5]}" for s in MMA_SHAPES])
+def test_bf16_tensor_core_kernels_match_plain(cuda, shape):
+    """K2 and K4 in bfloat16 (the tensor-core kernels) against their plain
+    versions within the bf16 tolerance, two runs bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    causal = shape[-1]
+    q, k, v, do = _bwd_inputs(cuda, shape, torch.bfloat16, seed=4)
+    assert kernel._kernel_variant(q.dtype) == "bf16 mma"
+    assert kernel_bwd._kernel_variant(q.dtype) == "bf16 mma"
+    before = kernel.flash_attention_bhsd.launches
+    o, lse = kernel.flash_attention_bhsd(q, k, v, causal=causal)
+    o2, lse2 = kernel.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.flash_attention_bhsd.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_p, lse_p = kernel.flash_attention_plain(q, k, v, causal=causal)
+    _close(o, o_p, 2e-2)
+    _close(lse, lse_p, 2e-2)
+
+    _, delta = kernel_bwd.bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                       causal=causal)
+    before = kernel_bwd.flash_attention_bwd_dkv.launches
+    got = kernel_bwd.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta,
+                                             causal=causal)
+    again = kernel_bwd.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta,
+                                               causal=causal)
+    torch.cuda.synchronize()
+    assert kernel_bwd.flash_attention_bwd_dkv.launches == before + 2
+    want = kernel_bwd.bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                    causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _close(g, w, 2e-2)
+
+
+@pytest.mark.gpu
+def test_bf16_tensor_core_kernels_raise_on_unaligned_inputs(cuda):
+    """A bf16 call the tensor-core kernels cannot take raises; it never
+    goes to the FMA kernel or to the plain version."""
+    from repro_torch.kernels.flash_attention import kernel, kernel_bwd
+    shape = (1, 2, 64, 64)
+    n = 2 * 64 * 64
+    buf = torch.randn(n + 1, device=cuda).to(torch.bfloat16)
+    q = buf[1:].view(shape)                     # 2 bytes past a boundary
+    k, v, do = (torch.randn(shape, device=cuda).to(torch.bfloat16)
+                for _ in range(3))
+    lse = torch.zeros(shape[:3], device=cuda)
+    before = (kernel.flash_attention_bhsd.launches,
+              kernel_bwd.flash_attention_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.flash_attention_bhsd(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel_bwd.flash_attention_bwd_dkv(q, k, v, do, lse, lse)
+    rows = torch.randn(1, 2, 64, 68, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernel.flash_attention_bhsd(rows[..., :64], k, v)  # row stride 68
+    assert (kernel.flash_attention_bhsd.launches,
+            kernel_bwd.flash_attention_bwd_dkv.launches) == before
+
+
 @pytest.mark.gpu
 def test_flash_attention_autograd_runs_the_kernels(cuda):
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd, ops
