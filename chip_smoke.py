@@ -86,6 +86,11 @@ SERVE = {"arch": "zamba2_2_7b", "batch": 4, "prompt_len": 1008, "gen": 16,
 # rounding no longer hides a fault and the bound is tight.
 SERVE_REL_TOL = {"bfloat16": 0.5, "float32": 1e-3}
 BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# the tensor-core kernels the build must hold: templated on the head dim,
+# and K5's two
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+               "flash_bwd_dkv_mma_kernel")
+SSD_MMA_KERNELS = ("ssd_chunk_state_mma_kernel", "ssd_chunk_scan_mma_kernel")
 DQ_REPLACES = "src/repro/kernels/flash_attention/kernel_bwd.py:38"
 DKV_REPLACES = "src/repro/kernels/flash_attention/kernel_bwd.py:79"
 # backward kernels against their plain version (atol = rtol), per dtype
@@ -312,8 +317,10 @@ def ssd_inputs(torch, device, b, l, h, p, n, dt_x, dt_bc, seed):
 def phase_ssd_check(torch, device) -> dict:
     """K5 against its plain version (both through ``ops.ssd_scan``'s
     padding): chunk 32/64/256, ragged l, fp32 and bf16 (and bf16 x with
-    fp32 B/C), Zamba2-2.7B's (h, p, n) and the smoke config's, and the
-    serving shape."""
+    fp32 B/C, which runs the FMA kernel), Zamba2-2.7B's (h, p, n),
+    Mamba-2-130M's and the smoke config's, and the serving shape; with bf16
+    x, B and C (the tensor-core kernels) two runs of each bit-equal."""
+    from repro_torch.kernels.ssd_scan import kernel as k
     from repro_torch.kernels.ssd_scan import ops
     runs = [  # (b, l, h, p, n, chunk, x dtype, B/C dtype)
         (2, 256, 80, 64, 64, 32, "float32", "float32"),
@@ -327,20 +334,34 @@ def phase_ssd_check(torch, device) -> dict:
         (2, 40, 8, 16, 16, 32, "float32", "float32"),
         (1, 37, 3, 8, 8, 16, "float32", "float32"),
         (4, 1024, 80, 64, 64, 256, "bfloat16", "bfloat16"),
+        (1, 520, 24, 64, 128, 256, "bfloat16", "bfloat16"),
+        (2, 40, 8, 16, 16, 32, "bfloat16", "bfloat16"),
     ]
     cases, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     for i, (b, l, h, p, n, chunk, dx, dbc) in enumerate(runs):
         x, dt, A, B, C, D = ssd_inputs(torch, device, b, l, h, p, n, dx, dbc,
                                        seed=200 + i)
+        what = f"ssd_scan {(b, l, h, p, n, chunk, dx, dbc)}"
+        repeat = k._kernel_variant(x.dtype, B.dtype) == "bf16 mma"
+        before = k.ssd_scan_chunked.launches
         y = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+        if repeat:
+            y2 = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
         torch.cuda.synchronize()
+        if k.ssd_scan_chunked.launches != before + 1 + repeat:
+            raise AssertionError(f"{what}: the wrapper did not launch")
+        if repeat and not torch.equal(y, y2):
+            raise AssertionError(f"{what}: two runs differ")
         with plain_kernels():
             y_p = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
-        err = within(y, y_p, SSD_TOL[dx],
-                     f"ssd_scan {(b, l, h, p, n, chunk, dx, dbc)}")
+        err = within(y, y_p, SSD_TOL[dx], what)
         max_err[dx] = max(max_err[dx], err)
         cases.append([b, l, h, p, n, chunk, dx, dbc, err])
     emit("kernel_check", kernel="ssd_scan", cases=len(cases),
+         variants={f"{dx} x, {dbc} B/C": k._kernel_variant(
+             getattr(torch, dx), getattr(torch, dbc))
+             for dx, dbc in sorted({r[6:] for r in runs})},
+         repeat_runs="bit-equal y (bfloat16 x, B and C)",
          tolerance={d: f"{t} abs + {t} rel" for d, t in SSD_TOL.items()},
          max_abs_err=max_err, detail=cases)
     return {"max_abs_err": max(max_err.values())}
@@ -562,6 +583,12 @@ def time_serving_kernels(torch, device, serve, fa_check, ssd_check) -> list:
         runs=20))
     plain_ms = statistics.median(cuda_ms(
         lambda: ssd_k.ssd_scan_plain(x, dt, A, Bm, Cm, D, chunk=Q), runs=5))
+    # the float32 FMA kernel at the same shape (float32 x, B and C)
+    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+    fp32_ms = statistics.median(cuda_ms(
+        lambda: ssd_k.ssd_scan_chunked(x32, dt, A, B32, C32, D, chunk=Q),
+        runs=10))
+    del x32, B32, C32
     n_chunks = L // Q
     tri = Q * (Q + 1) // 2                    # (i, j) pairs with j <= i
     # matrix products a tensor-core design needs: C B^T once per (batch,
@@ -574,6 +601,7 @@ def time_serving_kernels(torch, device, serve, fa_check, ssd_check) -> list:
         "ssd_scan", SSD_SOURCE, SSD_REPLACES, serve["counts"][1],
         ssd_check["max_abs_err"], ms, plain_ms, ssd_bytes, ssd_flops,
         BF16_FLOPS_PER_S, None,
+        variant=ssd_k._kernel_variant(bf16, bf16), fp32_ms=fp32_ms,
         shape={"b": B, "l": L, "h": nh, "p": p, "n": n, "chunk": Q,
                "dtype": "bfloat16"},
         operations_peak="bf16 tensor cores (989 TFLOP/s): the scan's "
@@ -629,8 +657,8 @@ def phase_bwd_check(torch, device) -> dict:
     """K3 and K4 against their plain version: tests/test_kernels.py's six
     shapes (GQA, ragged, Sq != Skv, causal and not), every head dim the
     kernels are built for, the model layout's strided views, both dtypes
-    (bf16 runs K4 on the tensor cores), the training shape; and two runs
-    of each bit-equal."""
+    (bf16 runs K3 and K4 on the tensor cores), the training shape; and two
+    runs of each bit-equal."""
     from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
     shapes = [  # (B, H, KV, Sq, Skv, hd, causal)
         (1, 2, 2, 128, 128, 64, True),
@@ -676,6 +704,8 @@ def phase_bwd_check(torch, device) -> dict:
             del q, k, v, o, lse, do, got, again, want
     emit("kernel_check", kernel="flash_attention_bwd (dq, dkv)",
          cases=len(cases), repeat_runs="bit-equal dq, dk, dv",
+         dq_variants={d: bwd_k._kernel_variant(getattr(torch, d))
+                      for d in BWD_TOL},
          dkv_variants={d: bwd_k._kernel_variant(getattr(torch, d))
                        for d in BWD_TOL},
          tolerance={d: f"{t} abs + {t} rel, dq dk dv"
@@ -949,8 +979,8 @@ def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
     """K3 and K4 at the shape the training path launches them with; SDPA's
     backward (GQA) as the one library call computing both.  K2's time at
     that shape goes into its row (``train``) beside its serving numbers.
-    K2's and K4's rows also carry ``fp32_ms``: the float32 FMA kernels on
-    float32 inputs at the training shape."""
+    K2's, K3's and K4's rows also carry ``fp32_ms``: the float32 FMA
+    kernels on float32 inputs at the training shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as fa_k
@@ -989,6 +1019,9 @@ def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
         runs=10))
     fa_row["fp32_ms_shape"] = "train"
     _, delta32 = bwd_k.flash_attention_bwd_dq(q32, k32, v32, o32, lse32, do32)
+    dq_fp32_ms = statistics.median(cuda_ms(
+        lambda: bwd_k.flash_attention_bwd_dq(q32, k32, v32, o32, lse32,
+                                             do32), runs=10))
     dkv_fp32_ms = statistics.median(cuda_ms(
         lambda: bwd_k.flash_attention_bwd_dkv(q32, k32, v32, do32, lse32,
                                               delta32), runs=10))
@@ -1020,7 +1053,8 @@ def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
     dq_row = kernel_row(
         "flash_attention_bwd_dq", BWD_SOURCE, DQ_REPLACES, train["counts"][1],
         err, dq_ms, dq_plain, 4 * rows + 2 * kv + 2 * 4 * B * H * S,
-        6 * hd * pairs, BF16_FLOPS_PER_S, lib_ms, variant="bf16 fma",
+        6 * hd * pairs, BF16_FLOPS_PER_S, lib_ms,
+        variant=bwd_k._kernel_variant(torch.bfloat16), fp32_ms=dq_fp32_ms,
         **common)
     dkv_row = kernel_row(
         "flash_attention_bwd_dkv", BWD_SOURCE, DKV_REPLACES,
@@ -1093,12 +1127,16 @@ def phase_build() -> None:
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
     seconds = time.perf_counter() - t0
     tables = {name: kernel_table(lib) for name, lib in libs.items()}
-    # the bf16 K2 and K4 must run on the tensor cores
+    # the bf16 K2, K3, K4 and K5 must run on the tensor cores
     mma = {k: v.get("tensor_core_instructions", 0)
            for t in tables.values() for k, v in t.items() if "_mma_" in k}
-    if len(mma) != 2 * len(KERNEL_HEAD_DIMS) or not all(mma.values()):
-        raise AssertionError(f"build: tensor-core kernels and their HMMA "
-                             f"counts {mma}")
+    want = [f"{k}<{hd}>" for k in MMA_KERNELS for hd in KERNEL_HEAD_DIMS] \
+        + list(SSD_MMA_KERNELS)
+    if sorted(mma) != sorted(want) or not all(mma.values()):
+        raise AssertionError(
+            f"build: tensor-core kernels missing or without HMMA: "
+            f"{[k for k in want if not mma.get(k)]}; not expected: "
+            f"{sorted(set(mma) - set(want))}")
     emit("build", kernels=list(SOURCES), seconds=seconds,
          per_kernel=tables)
 

@@ -29,29 +29,50 @@
 //           reads rather than recomputing it per q tile.
 //   pass B: block (kv tile, bh) loops over q tiles at or above the diagonal.
 //
-// Pass A, both dtypes, and pass B in float32 do their products with fp32
-// FMAs on the CUDA cores (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`).
-// Tiles are staged in shared memory as fp32 with odd row pitches (HD + 1,
-// 65), which keep the column walks free of bank conflicts.  Thread (ty, tx) =
-// (t / 8, t % 8) owns tile rows ty + 16 r (r < 4) and the columns tx + 8 c of
-// the 64 x 64 score tile and of the HD-wide accumulators, so a row's eight
-// threads are adjacent lanes.
+// The dtype alone picks the kernel of each pass (the wrapper's
+// `_kernel_variant`).  float32 runs fp32 FMAs on the CUDA cores
+// (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`).  Tiles are staged in
+// shared memory as fp32 with odd row pitches (HD + 1, 65), which keep the
+// column walks free of bank conflicts.  Thread (ty, tx) = (t / 8, t % 8)
+// owns tile rows ty + 16 r (r < 4) and the columns tx + 8 c of the 64 x 64
+// score tile and of the HD-wide accumulators, so a row's eight threads are
+// adjacent lanes.
 //
-// Pass B in bfloat16 runs on the tensor cores (`flash_bwd_dkv_mma_kernel`,
-// mma.sync m16n8k16 with ldmatrix and cp.async from mma_bf16.cuh).  Each of
-// the 4 warps owns 16 kv rows of the block's 64; K and V stay in shared
-// memory, and Q, dO, lse and delta tiles of 32 q rows stream through a
-// two-stage cp.async ring.  Per q tile: S^T = K Q^T and dP^T = V dO^T on the
-// tensor cores; P^T = exp(scale S^T - lse) and dS^T = P^T (dP^T - delta) on
-// the fragments, for kept pairs only (a warp whose kv rows all lie past the
-// tile's last q row skips the tile); then dV += P^T dO and dK += dS^T Q with
-// P^T and dS^T in registers as A operands (dO and Q by ldmatrix.trans).  dK
-// is scaled once in the epilogue.  P^T and dS^T go in as a bf16 high part
-// plus a bf16 low part (two products each): D12 rounds each query head's dk
-// and dv to bf16 before the GQA sum, and a single bf16 rounding of P and dS
-// moves the fp32 sums far enough that several of the 8 per-head roundings
-// flip together: at TinyLlama's shape (S 2048, G = 8) dv then left the bf16
-// tolerance of the check against the plain version.
+// bfloat16 runs both passes on the tensor cores (mma.sync m16n8k16 with
+// ldmatrix and cp.async from mma_bf16.cuh):
+//
+// * Pass A, `flash_bwd_dq_mma_kernel`: the FA-2 dq structure of the forward's
+//   `flash_fwd_mma_kernel`.  The last q tiles launch first (under the causal
+//   mask they carry the most work).  Each of the 4 warps owns 16 q rows,
+//   whose Q fragments stay in registers for the whole kv loop (dO's are
+//   re-read from shared memory); K and V tiles of 64 rows stream through a
+//   two-stage cp.async ring.  Per 32-column half of a kv tile (halves keep
+//   fewer registers live): S = Q K^T and dP = dO V^T on the tensor cores;
+//   P = exp2(S scale log2e - lse log2e) and dS = P (dP - delta) on the
+//   fragments, for kept pairs only; then dQ += dS K with dS packed to bf16
+//   in registers as the A operand and K by ldmatrix.trans.  A warp whose
+//   rows all lie before a half's first kv column skips the half.
+//   delta = rowsum(dO * O) is taken in fp32 in the prologue (dO from the
+//   shared tile, O from global memory) and written once; dQ is scaled once
+//   in the epilogue.  dS is rounded to bf16 once: dq has no per-head sum
+//   before its own rounding (unlike dk and dv under D12), and at
+//   TinyLlama's shape (S 2048, 8 query heads per kv head) the emulated
+//   single rounding stays within a quarter of the 2e-2 tolerance of the
+//   check against the plain version (tests/emulate_bf16_roundings.py).
+// * Pass B, `flash_bwd_dkv_mma_kernel`: each of the 4 warps owns 16 kv rows
+//   of the block's 64; K and V stay in shared memory, and Q, dO, lse and
+//   delta tiles of 32 q rows stream through a two-stage cp.async ring.  Per
+//   q tile: S^T = K Q^T and dP^T = V dO^T on the tensor cores; P^T = exp(scale
+//   S^T - lse) and dS^T = P^T (dP^T - delta) on the fragments, for kept pairs
+//   only (a warp whose kv rows all lie past the tile's last q row skips the
+//   tile); then dV += P^T dO and dK += dS^T Q with P^T and dS^T in registers
+//   as A operands (dO and Q by ldmatrix.trans).  dK is scaled once in the
+//   epilogue.  P^T and dS^T go in as a bf16 high part plus a bf16 low part
+//   (two products each): D12 rounds each query head's dk and dv to bf16
+//   before the GQA sum, and a single bf16 rounding of P and dS moves the fp32
+//   sums far enough that several of the 8 per-head roundings flip together:
+//   at TinyLlama's shape (S 2048, G = 8) dv then left the bf16 tolerance of
+//   the check against the plain version.
 //
 // In every kernel rows past Sq or Skv load as zeros, and exp is taken only
 // where the mask keeps the pair: a masked or padded pair contributes exactly
@@ -71,17 +92,11 @@ constexpr int kRows = 4;            // tile rows per thread: ty + 16 r
 constexpr int kCols = 8;            // score columns per thread: tx + 8 c
 constexpr int kSP = kBlock + 1;     // row pitch of the score tiles
 
+// the FMA kernels are instantiated for float only (bfloat16 runs on mma)
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
 }
 
 struct Strides {
@@ -403,6 +418,208 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Pass A in bfloat16 on the tensor cores: dq for one (64-row q tile, bh);
+// also writes delta for its rows.
+template <int HD>
+constexpr size_t dq_mma_smem_bytes() {  // Qs, dOs [64]; Ks, Vs [2][64] rows
+  return sizeof(__nv_bfloat16) * 6 * kBlock * repro_mma::pitch<HD>();
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int H, int KV, int Sq,
+                        int Skv, Strides qs, Strides ks, Strides vs,
+                        Strides os, Strides dos, float scale, int causal) {
+  using namespace repro_mma;
+  constexpr int P = pitch<HD>();
+  constexpr int KS = HD / 16;           // k-steps of Q K^T and dO V^T
+  constexpr int NO = HD / 8;            // n-tiles of dQ
+  constexpr int kHalf = HD / 2;         // delta: columns per lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + kBlock * P;
+  bf16* Ks = dOs + kBlock * P;          // [2][64][P]
+  bf16* Vs = Ks + 2 * kBlock * P;       // [2][64][P]
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kvh = h / (H / KV);
+  // the last q tiles first: under the causal mask they carry the most work
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlock;
+  const int wq0 = q0 + warp * 16;       // the warp's first q row
+  const int row[2] = {wq0 + g, wq0 + g + 8};
+  const long long row0 = static_cast<long long>(bh) * Sq;
+
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* dob = dout + b * dos.b + h * dos.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+
+  int n_tiles = (Skv + kBlock - 1) / kBlock;
+  if (causal) {                         // kv tiles at or below the diagonal
+    const int last_q = min(q0 + kBlock, Sq) - 1;
+    n_tiles = min(n_tiles, min(last_q, Skv - 1) / kBlock + 1);
+  }
+
+  cp_tile<HD, kBlock, kThreads>(Qs, qb, qs.s, q0, Sq);
+  cp_tile<HD, kBlock, kThreads>(dOs, dob, dos.s, q0, Sq);
+  cp_tile<HD, kBlock, kThreads>(Ks, kb, ks.s, 0, Skv);
+  cp_tile<HD, kBlock, kThreads>(Vs, vb, vs.s, 0, Skv);
+  cp_async_commit();
+
+  unsigned qf[KS][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float lse2[2], dl[2] = {0.0f, 0.0f};  // lse * log2(e), delta: rows g, g+8
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lse2[r] = row[r] < Sq ? lse[row0 + row[r]] * kLog2e : 0.0f;
+  const float sl2 = scale * kLog2e;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int buf = tile & 1;
+    if (tile + 1 < n_tiles) {           // next K/V tile into the other stage
+      const int nxt = (tile + 1) * kBlock;
+      cp_tile<HD, kBlock, kThreads>(Ks + (buf ^ 1) * kBlock * P, kb, ks.s,
+                                    nxt, Skv);
+      cp_tile<HD, kBlock, kThreads>(Vs + (buf ^ 1) * kBlock * P, vb, vs.s,
+                                    nxt, Skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                    // this stage's K/V (and Q, dO) landed
+    if (tile == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], a_rows(Qs, P, warp * 16, kk * 16, lane));
+      // delta = rowsum(dO * O) in fp32: lane l sums half l % 2 of row l / 2
+      const int r = lane / 2, c0 = (lane % 2) * kHalf;
+      const int qrow = wq0 + r;
+      float part = 0.0f;
+      if (qrow < Sq) {
+        const bf16* orow = o + b * os.b + h * os.h + qrow * os.s + c0;
+        const bf16* drow = dOs + (warp * 16 + r) * P + c0;
+#pragma unroll
+        for (int c = 0; c < kHalf; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+          const __nv_bfloat162* o2 =
+              reinterpret_cast<const __nv_bfloat162*>(&ov);
+          const __nv_bfloat162* d2 =
+              reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 of = __bfloat1622float2(o2[i]);
+            const float2 df = __bfloat1622float2(d2[i]);
+            part = fmaf(df.x, of.x, part);
+            part = fmaf(df.y, of.y, part);
+          }
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      if (lane % 2 == 0 && qrow < Sq) delta[row0 + qrow] = part;
+      dl[0] = __shfl_sync(0xffffffffu, part, 2 * g);
+      dl[1] = __shfl_sync(0xffffffffu, part, 2 * (g + 8));
+    }
+    const bf16* Kt = Ks + buf * kBlock * P;
+    const bf16* Vt = Vs + buf * kBlock * P;
+    const int kv0 = tile * kBlock;
+
+    // the tile in two 32-column halves (fewer live registers); a warp whose
+    // q rows all lie before a half's first kv column keeps nothing there
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = kv0 + half * 32;   // the half's first kv column
+      if (causal && c0 > wq0 + 15) continue;
+      // S = Q K^T and dP = dO V^T: rows q, columns kv (dO fragments
+      // re-read from shared memory)
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        unsigned df[4];
+        ldsm_x4(df, a_rows(dOs, P, warp * 16, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          unsigned bk[4], bv[4];
+          ldsm_x4(bk, b_rows_nk(Kt, P, half * 32 + np * 16, kk * 16, lane));
+          ldsm_x4(bv, b_rows_nk(Vt, P, half * 32 + np * 16, kk * 16, lane));
+          mma_16816(s[2 * np], qf[kk], bk[0], bk[1]);
+          mma_16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          mma_16816(dp[2 * np], df, bv[0], bv[1]);
+          mma_16816(dp[2 * np + 1], df, bv[2], bv[3]);
+        }
+      }
+
+      // dS = P (dP - delta) on the kept pairs; exactly 0 elsewhere
+      const bool edge = c0 + 32 > Skv || wq0 + 16 > Sq ||
+                        (causal && c0 + 31 > wq0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          bool keep = true;
+          if (edge) {
+            const int col = c0 + j * 8 + 2 * t4 + (e & 1);
+            keep = row[r] < Sq && col < Skv && (!causal || col <= row[r]);
+          }
+          dp[j][e] = keep ? exp2f(s[j][e] * sl2 - lse2[r]) * (dp[j][e] - dl[r])
+                          : 0.0f;
+        }
+
+      // dQ += dS K: dS packed to bf16 from the fragments, K by
+      // ldmatrix.trans
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        const unsigned da[4] = {
+            pack_bf16(dp[2 * kt][0], dp[2 * kt][1]),
+            pack_bf16(dp[2 * kt][2], dp[2 * kt][3]),
+            pack_bf16(dp[2 * kt + 1][0], dp[2 * kt + 1][1]),
+            pack_bf16(dp[2 * kt + 1][2], dp[2 * kt + 1][3])};
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          unsigned bk[4];
+          ldsm_x4_trans(bk,
+                        b_rows_kn(Kt, P, half * 32 + kt * 16, np * 16, lane));
+          mma_16816(acc[2 * np], da, bk[0], bk[1]);
+          mma_16816(acc[2 * np + 1], da, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();                    // this stage is free for reuse
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= Sq) continue;
+    bf16* dst = dq + (row0 + row[r]) * HD + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<unsigned*>(dst + n * 8) =
+          pack_bf16(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
 // Pass B in bfloat16 on the tensor cores: per-query-head dk and dv for one
 // (64-row kv tile, bh).
 constexpr int kQRows = 32;          // q rows per streamed tile
@@ -511,13 +728,13 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         unsigned ka[4], va[4];
-        ldsm_x4(ka, a_rows<P>(Ks, kw0, kk * 16, lane));
-        ldsm_x4(va, a_rows<P>(Vs, kw0, kk * 16, lane));
+        ldsm_x4(ka, a_rows(Ks, P, kw0, kk * 16, lane));
+        ldsm_x4(va, a_rows(Vs, P, kw0, kk * 16, lane));
 #pragma unroll
         for (int np = 0; np < NQ / 2; ++np) {
           unsigned bq[4], bo[4];
-          ldsm_x4(bq, b_rows_nk<P>(Qt, np * 16, kk * 16, lane));
-          ldsm_x4(bo, b_rows_nk<P>(dOt, np * 16, kk * 16, lane));
+          ldsm_x4(bq, b_rows_nk(Qt, P, np * 16, kk * 16, lane));
+          ldsm_x4(bo, b_rows_nk(dOt, P, np * 16, kk * 16, lane));
           mma_16816(s[2 * np], ka, bq[0], bq[1]);
           mma_16816(s[2 * np + 1], ka, bq[2], bq[3]);
           mma_16816(dp[2 * np], va, bo[0], bo[1]);
@@ -558,8 +775,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int np = 0; np < NO / 2; ++np) {
           unsigned bo[4], bq[4];
-          ldsm_x4_trans(bo, b_rows_kn<P>(dOt, kt * 16, np * 16, lane));
-          ldsm_x4_trans(bq, b_rows_kn<P>(Qt, kt * 16, np * 16, lane));
+          ldsm_x4_trans(bo, b_rows_kn(dOt, P, kt * 16, np * 16, lane));
+          ldsm_x4_trans(bq, b_rows_kn(Qt, P, kt * 16, np * 16, lane));
           mma_16816(acc_v[2 * np], ph, bo[0], bo[1]);
           mma_16816(acc_v[2 * np + 1], ph, bo[2], bo[3]);
           mma_16816(acc_v[2 * np], pl, bo[0], bo[1]);
@@ -618,6 +835,24 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_dq_mma(const Args& a) {
+  using T = __nv_bfloat16;
+  constexpr size_t shmem = dq_mma_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Sq + kBlock - 1) / kBlock, a.B * a.H);
+  flash_bwd_dq_mma_kernel<HD><<<grid, kThreads, shmem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.H, a.KV, a.Sq,
+      a.Skv, a.qs, a.ks, a.vs, a.os, a.dos, a.scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int HD>
 int launch_dkv(const Args& a) {
   constexpr size_t shmem = dkv_smem_bytes<HD>();
@@ -653,12 +888,12 @@ int launch_dkv_mma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// kernel 0: pass A in float32; 1: pass A in bfloat16 (both FMA); 2: pass B
-// in float32 (FMA); 3: pass B in bfloat16 (tensor cores)
+// kernel 0: pass A in float32 (FMA); 1: pass A in bfloat16 (tensor cores);
+// 2: pass B in float32 (FMA); 3: pass B in bfloat16 (tensor cores)
 template <int KERNEL, int HD>
 int launch_one(const Args& a) {
   if constexpr (KERNEL == 0) return launch_dq<float, HD>(a);
-  else if constexpr (KERNEL == 1) return launch_dq<__nv_bfloat16, HD>(a);
+  else if constexpr (KERNEL == 1) return launch_dq_mma<HD>(a);
   else if constexpr (KERNEL == 2) return launch_dkv<float, HD>(a);
   else return launch_dkv_mma<HD>(a);
 }
@@ -706,7 +941,10 @@ int dispatch(const Args& a, int hd, int code) {
 //   dk, dv      T [B, H, Skv, hd]   contiguous, per query head
 // hd a multiple of 16 up to 128.
 
-// Pass A: writes dq and delta.  dtype 0 = float32, 1 = bfloat16.
+// Pass A: writes dq and delta.  kernel 0 = the float32 FMA kernel (T =
+// float), 1 = the bfloat16 tensor-core kernel (T = bfloat16; q, k, v, o,
+// dout 16-byte aligned with strides that are multiples of 8, which the
+// wrapper checks).
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, int B, int H,
@@ -714,12 +952,12 @@ extern "C" int flash_attention_bwd_dq_launch(
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, long long osb, long long osh, long long oss,
     long long dsb, long long dsh, long long dss, float scale, int causal,
-    int dtype, void* stream) {
+    int kernel, void* stream) {
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, B, H, KV,
                Sq, Skv, {qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
                {osb, osh, oss}, {dsb, dsh, dss}, scale, causal,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<0>(a, hd, dtype);
+  return dispatch<0>(a, hd, kernel);
 }
 
 // Pass B: reads delta (written by pass A), writes dk and dv.  kernel 0 = the

@@ -302,7 +302,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (tile == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], a_rows<P>(Qs, warp * kWarpRows, kk * 16, lane));
+        ldsm_x4(qf[kk], a_rows(Qs, P, warp * kWarpRows, kk * 16, lane));
     }
     const bf16* Kt = Ks + buf * kBlockKV * P;
     const bf16* Vt = Vs + buf * kBlockKV * P;
@@ -317,7 +317,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         unsigned bk[4];
-        ldsm_x4(bk, b_rows_nk<P>(Kt, np * 16, kk * 16, lane));
+        ldsm_x4(bk, b_rows_nk(Kt, P, np * 16, kk * 16, lane));
         mma_16816(s[2 * np], qf[kk], bk[0], bk[1]);
         mma_16816(s[2 * np + 1], qf[kk], bk[2], bk[3]);
       }
@@ -372,7 +372,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
         unsigned bv[4];
-        ldsm_x4_trans(bv, b_rows_kn<P>(Vt, kt * 16, np * 16, lane));
+        ldsm_x4_trans(bv, b_rows_kn(Vt, P, kt * 16, np * 16, lane));
         mma_16816(acc[2 * np], pa, bv[0], bv[1]);
         mma_16816(acc[2 * np + 1], pa, bv[2], bv[3]);
       }

@@ -3,7 +3,8 @@
 //
 //   mma_16816   mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 //   ldsm_x4     ldmatrix.sync.aligned.m8n8.x4 (and .trans): four 8 x 8 bf16
-//               matrices from shared memory into mma fragments
+//               matrices from shared memory into mma fragments (lane
+//               addresses: a_rows, a_rows_km, b_rows_nk, b_rows_kn)
 //   cp_async_16 cp.async.cg 16-byte global -> shared copy, zero-filled when
 //               the source row is out of range; cp_async_4 (cp.async.ca) for
 //               fp32 row statistics
@@ -17,10 +18,11 @@
 // fragment of the next product (the FA-2 register reuse).  The smaller
 // column index sits in the low half of a packed register.
 //
-// Shared-memory tiles are row-major with a row pitch of (hd + 8) bf16: an odd
-// multiple of 16 bytes modulo 128 for every hd that is a multiple of 16, so
-// the eight row addresses of each ldmatrix phase fall in eight different
-// 16-byte bank groups (no conflicts).
+// Shared-memory tiles are row-major with a row pitch of (width + 8) bf16 for
+// rows of `width` elements: an odd multiple of 16 bytes modulo 128 for every
+// width that is a multiple of 16, so the eight row addresses of each
+// ldmatrix phase fall in eight different 16-byte bank groups (no
+// conflicts).
 
 #pragma once
 
@@ -69,27 +71,32 @@ __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
       : "r"(smem_addr(p)));
 }
 
-// Lane addresses for ldsm_x4 over a row-major tile `base` (pitch P):
-// A operand, rows r0..r0+15 x cols c0..c0+15 -> a0..a3
-template <int P>
-__device__ __forceinline__ const bf16* a_rows(const bf16* base, int r0,
-                                              int c0, int lane) {
-  return base + (r0 + (lane & 15)) * P + c0 + (lane >> 4) * 8;
+// Lane addresses for ldsm_x4 over a row-major tile `base` of row pitch
+// `pitch` elements:
+// A operand stored [m][k] (rows r0..r0+15 x cols c0..c0+15) -> a0..a3
+__device__ __forceinline__ const bf16* a_rows(const bf16* base, int pitch,
+                                              int r0, int c0, int lane) {
+  return base + (r0 + (lane & 15)) * pitch + c0 + (lane >> 4) * 8;
+}
+// A operand stored [k][m] (rows k0..k0+15, m cols m0..m0+15), read with
+// .trans -> a0..a3
+__device__ __forceinline__ const bf16* a_rows_km(const bf16* base, int pitch,
+                                                 int k0, int m0, int lane) {
+  return base + (k0 + (lane & 7) + (lane >> 4) * 8) * pitch + m0 +
+         ((lane >> 3) & 1) * 8;
 }
 // B operand stored as [n][k] (rows n0..n0+15, k cols c0..c0+15), read
 // without .trans -> {b0, b1} of n-tile n0 and {b0, b1} of n-tile n0 + 8
-template <int P>
-__device__ __forceinline__ const bf16* b_rows_nk(const bf16* base, int n0,
-                                                 int c0, int lane) {
-  return base + (n0 + (lane & 7) + (lane >> 4) * 8) * P + c0 +
+__device__ __forceinline__ const bf16* b_rows_nk(const bf16* base, int pitch,
+                                                 int n0, int c0, int lane) {
+  return base + (n0 + (lane & 7) + (lane >> 4) * 8) * pitch + c0 +
          ((lane >> 3) & 1) * 8;
 }
 // B operand stored as [k][n] (rows k0..k0+15, n cols n0..n0+15), read with
 // .trans -> {b0, b1} of n-tile n0 and {b0, b1} of n-tile n0 + 8
-template <int P>
-__device__ __forceinline__ const bf16* b_rows_kn(const bf16* base, int k0,
-                                                 int n0, int lane) {
-  return base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + n0 +
+__device__ __forceinline__ const bf16* b_rows_kn(const bf16* base, int pitch,
+                                                 int k0, int n0, int lane) {
+  return base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + n0 +
          (lane >> 4) * 8;
 }
 

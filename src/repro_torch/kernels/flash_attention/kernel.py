@@ -49,8 +49,8 @@ _KERNEL_CODES = {"fp32 fma": 0, "bf16 mma": 1}
 
 def _kernel_variant(dtype) -> str:
     """The CUDA kernel that inputs of ``dtype`` run, in the forward and in
-    the dk/dv pass: ``"fp32 fma"`` for float32, ``"bf16 mma"`` (tensor
-    cores) for bfloat16."""
+    both backward passes: ``"fp32 fma"`` for float32, ``"bf16 mma"``
+    (tensor cores) for bfloat16."""
     if dtype not in _VARIANTS:
         raise TypeError(f"no flash-attention kernel for {dtype}")
     return _VARIANTS[dtype]

@@ -33,12 +33,13 @@ stock torch ops, which the tests and the on-card comparison hold the
 kernels against.  The wrappers take any strides whose last dimension is
 contiguous.
 
-Pass A runs fp32 FMAs in both dtypes.  For pass B the dtype alone chooses
-the CUDA kernel (:func:`_kernel_variant`, the forward's choice): float32
-runs on fp32 FMAs (``"fp32 fma"``), bfloat16 on the tensor cores (``"bf16
-mma"``, which feeds p and ds to its two products as a bfloat16 high plus a
-bfloat16 low part), whose inputs must start on a 16-byte boundary with
-strides that are multiples of 8 elements; a call that breaks this raises.
+In both passes the dtype alone chooses the CUDA kernel
+(:func:`_kernel_variant`, the forward's choice): float32 runs on fp32 FMAs
+(``"fp32 fma"``), bfloat16 on the tensor cores (``"bf16 mma"``).  Pass A
+rounds ds to bfloat16 once before ds . k; pass B feeds p and ds to its two
+products as a bfloat16 high plus a bfloat16 low part.  The tensor-core
+kernels' inputs must start on a 16-byte boundary with strides that are
+multiples of 8 elements; a call that breaks this raises.
 """
 
 from __future__ import annotations
@@ -53,8 +54,6 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.kernel import (
     _KERNEL_CODES, KERNEL_HEAD_DIMS, MAX_GRID_Y, NEG_INF, _check,
     _kernel_variant, _mma_layout_error)
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _grouped(x, KV):
@@ -164,7 +163,7 @@ def _cuda_ready(q, k, tensors) -> bool:
 def _launchers():
     lib = _build.load_library("flash_attention_bwd")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    tail = [ctypes.c_float, i32, i32, ptr]      # scale causal dtype/kernel st
+    tail = [ctypes.c_float, i32, i32, ptr]      # scale causal kernel stream
     dq = lib.flash_attention_bwd_dq_launch
     dq.argtypes = ([ptr] * 8 + [i32] * 6 + [i64] * 15 + tail)
     dkv = lib.flash_attention_bwd_dkv_launch
@@ -183,6 +182,9 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal=True):
     _check_bwd(q, k, v, lse, o, do)
     if not _cuda_ready(q, k, (q, k, v, o, do)):
         return bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
+    variant = _kernel_variant(q.dtype)
+    if variant == "bf16 mma" and (err := _mma_layout_error(q, k, v, o, do)):
+        raise ValueError(err)
     B, H, Sq, hd = q.shape
     _, KV, Skv, _ = k.shape
     lse = lse.contiguous()
@@ -196,7 +198,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal=True):
                      dq.data_ptr(), B, H, KV, Sq, Skv, hd,
                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                      *o.stride()[:3], *do.stride()[:3], 1.0 / math.sqrt(hd),
-                     int(causal), _DTYPES[q.dtype], stream)
+                     int(causal), _KERNEL_CODES[variant], stream)
     flash_attention_bwd_dq.launches += 1
     _raise_on(err, "flash_attention_bwd_dq")
     return dq, delta

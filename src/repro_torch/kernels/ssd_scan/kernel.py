@@ -15,10 +15,22 @@ the inter-chunk term ``exp(cum_i) C_i . state``; then the state
 sum_j exp(cum_last - cum_j) dt_j x_j B_j^T``; finally ``+ D x``.
 
 :func:`ssd_scan_chunked` is the wrapper: on CUDA tensors it launches the
-hand-written kernel (``csrc/ssd_scan.cu``, built at first use) or raises;
+hand-written kernels (``csrc/ssd_scan.cu``, built at first use) or raises;
 on CPU tensors it runs :func:`ssd_scan_plain`, the same function in stock
 torch ops, which is also what the tests and the on-card comparison hold
-the kernel against.
+the kernels against.
+
+The dtype pair alone chooses the CUDA kernels (:func:`_kernel_variant`):
+bfloat16 x with bfloat16 B and C runs on the tensor cores (``"bf16
+mma"``: three launches per call, chunk states, their chain, then the
+output, with an fp32 scratch of one [p, n] state per batch, chunk and
+head and of (cum, dt) per step; W, the scaled B rows and the state go
+into their products as a bfloat16 high plus a bfloat16 low part); every
+other pair runs one launch on fp32 FMAs (``"fp32 fma"``).  The
+tensor-core kernels take chunk and n multiples of 16 and p a multiple of
+8 (:func:`_mma_limits_error`), with x, B and C starting on a 16-byte
+boundary (:func:`_mma_layout_error`); a call that breaks this raises.
+``ssd_scan_chunked.launches`` counts calls.
 """
 
 from __future__ import annotations
@@ -35,6 +47,39 @@ MAX_HEAD_DIM = 64        # p: four 16-wide column groups per thread
 MAX_STATE = 128          # n: the [p, n] state lives in shared memory
 MAX_GRID_Y = 65535       # one grid row per batch entry
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel_variant(x_dtype, bc_dtype) -> str:
+    """The CUDA kernels that x of ``x_dtype`` with B and C of ``bc_dtype``
+    run: ``"bf16 mma"`` (tensor cores) for bfloat16 with bfloat16,
+    ``"fp32 fma"`` for every other float32/bfloat16 pair."""
+    if x_dtype not in _DTYPES or bc_dtype not in _DTYPES:
+        raise TypeError(f"no SSD scan kernel for {x_dtype} with {bc_dtype}")
+    if x_dtype == bc_dtype == torch.bfloat16:
+        return "bf16 mma"
+    return "fp32 fma"
+
+
+def _mma_limits_error(p, n, chunk):
+    """Why the tensor-core kernels cannot take these widths, or None: the
+    products run in 16-wide steps over chunk and n, and x rows move as
+    16-byte runs (p is padded to 16 columns in shared memory)."""
+    if chunk % 16 or n % 16 or p % 8:
+        return (f"the bf16 tensor-core SSD kernels take chunk and n "
+                f"multiples of 16 and p a multiple of 8; got chunk {chunk}, "
+                f"n {n}, p {p}")
+    return None
+
+
+def _mma_layout_error(*tensors):
+    """Why the tensor-core kernels cannot take these contiguous tensors, or
+    None: cp.async moves 16-byte rows, so each must start on a 16-byte
+    boundary."""
+    for i, t in enumerate(tensors):
+        if t.data_ptr() % 16:
+            return (f"input {i} of the bf16 tensor-core SSD kernels does not "
+                    f"start on a 16-byte boundary")
+    return None
 
 
 def ssd_scan_plain(x, dt, A, B, C, D, *, chunk=64):
@@ -98,7 +143,7 @@ def _check(x, dt, A, B, C, D, chunk):
 def _launcher():
     fn = _build.load_library("ssd_scan").ssd_scan_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 7 + [i32] * 6 + [i32, i32, ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 5 + [i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -122,16 +167,26 @@ def ssd_scan_chunked(x, dt, A, B, C, D, *, chunk=64):
             f"{MAX_HEAD_DIM}, n <= {MAX_STATE}, b <= {MAX_GRID_Y}; got "
             f"{chunk}, {p}, {n}, {b}")
     x, dt, A, B, C, D = (t.contiguous() for t in (x, dt, A, B, C, D))
+    mma = _kernel_variant(x.dtype, B.dtype) == "bf16 mma"
+    if mma and (err := _mma_limits_error(p, n, chunk)
+                or _mma_layout_error(x, B, C)):
+        raise ValueError(err)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
+    # the tensor-core path's scratch: each chunk's state, and (cum, dt) of
+    # each step
+    nc = l // chunk if mma else 0
+    states = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=dev)
+    cumdt = torch.empty((b, nc, h, chunk, 2), dtype=torch.float32,
+                        device=dev)
     launch = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                      B.data_ptr(), C.data_ptr(), D.data_ptr(), y.data_ptr(),
-                     b, l, h, p, n, chunk, _DTYPES[x.dtype],
-                     _DTYPES[B.dtype], stream)
+                     states.data_ptr(), cumdt.data_ptr(), b, l, h, p, n,
+                     chunk, _DTYPES[x.dtype], _DTYPES[B.dtype], stream)
     ssd_scan_chunked.launches += 1
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")

@@ -1,16 +1,17 @@
 """Which CUDA kernel each dtype runs, and what the bf16 tensor-core kernels
 take, checked on the CPU (no CUDA, no compiler).
 
-The flash-attention forward (K2) and the dk/dv pass (K4) run on fp32 FMAs
-for float32 and on the tensor cores for bfloat16; the choice is a pure
-function of the dtype.  The tensor-core kernels move 16-byte rows, so the
-wrappers reject inputs that do not start on a 16-byte boundary or whose
-strides are not multiples of 8 elements; that check is a pure function of
-the tensors' pointers and strides.  On CPU tensors the wrappers run their
+The flash-attention forward (K2), the dq pass (K3) and the dk/dv pass (K4)
+run on fp32 FMAs for float32 and on the tensor cores for bfloat16; the
+choice is a pure function of the dtype.  The tensor-core kernels move
+16-byte rows, so the wrappers reject inputs that do not start on a 16-byte
+boundary or whose strides are not multiples of 8 elements; that check is a
+pure function of the tensors' pointers and strides.  On CPU tensors the wrappers run their
 plain versions as before, whatever the layout.  Last, the roundings that
-only the tensor-core kernels do (P to bf16 in K2; P and dS as a bf16 high
-plus a bf16 low part in K4) are emulated in float64 and held against the
-plain versions with the on-card bf16 tolerance (2e-2 abs + rel).
+only the tensor-core kernels do (P to bf16 in K2; dS to bf16 in K3; P and
+dS as a bf16 high plus a bf16 low part in K4) are emulated in float64 and
+held against the plain versions with the on-card bf16 tolerance (2e-2 abs
++ rel).
 """
 
 import math
@@ -121,16 +122,22 @@ def test_cpu_wrappers_run_the_plain_versions(monkeypatch, shape, dtype):
     causal = shape[-1]
     q, k, v, do = _inputs(shape, dtype, seed=7)
     before = (kernel.flash_attention_bhsd.launches,
+              kernel_bwd.flash_attention_bwd_dq.launches,
               kernel_bwd.flash_attention_bwd_dkv.launches)
     o, lse = kernel.flash_attention_bhsd(q, k, v, causal=causal)
     o_p, lse_p = kernel.flash_attention_plain(q, k, v, causal=causal)
     assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
-    _, delta = kernel_bwd.bwd_dq_plain(q, k, v, o, lse, do, causal=causal)
+    dq, delta = kernel_bwd.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                  causal=causal)
+    dq_p, delta_p = kernel_bwd.bwd_dq_plain(q, k, v, o, lse, do,
+                                            causal=causal)
+    assert torch.equal(dq, dq_p) and torch.equal(delta, delta_p)
     got = kernel_bwd.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                              causal=causal)
     want = kernel_bwd.bwd_dkv_plain(q, k, v, do, lse, delta, causal=causal)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert (kernel.flash_attention_bhsd.launches,
+            kernel_bwd.flash_attention_bwd_dq.launches,
             kernel_bwd.flash_attention_bwd_dkv.launches) == before
 
 
@@ -139,6 +146,8 @@ def test_cpu_wrappers_take_layouts_the_tensor_core_kernels_refuse():
     k = v = torch.zeros(1, 2, 64, 64, dtype=BF16)
     o, lse = kernel.flash_attention_bhsd(q, k, v)
     assert torch.equal(o, kernel.flash_attention_plain(q, k, v)[0])
+    dq, delta = kernel_bwd.flash_attention_bwd_dq(q, k, v, q, lse, q)
+    assert tuple(dq.shape) == (1, 2, 64, 64)
     dk, dv = kernel_bwd.flash_attention_bwd_dkv(q, k, v, q, lse, lse)
     assert tuple(dk.shape) == tuple(dv.shape) == (1, 2, 64, 64)
 
@@ -190,6 +199,26 @@ def _emulated_fwd(q, k, v, causal, tile=64):
     return (acc / l).to(BF16), (m + torch.log(l))[..., 0].float()
 
 
+def _emulated_dq(q, k, v, o, lse, do, causal, split=False):
+    """K3 on the tensor cores: fp32 scores of bf16 operands, delta =
+    rowsum(dO O) in fp32, dS rounded to bf16 once (or, with ``split``, as
+    a bf16 high plus a bf16 low part) before dQ = scale dS K; in bf16."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    kk = k.double().repeat_interleave(H // KV, 1)
+    vv = v.double().repeat_interleave(H // KV, 1)
+    scale = 1.0 / math.sqrt(hd)
+    delta = (do.float() * o.float()).sum(-1)
+    p = torch.exp(q.double() @ kk.transpose(-1, -2) * scale
+                  - lse.double()[..., None])
+    if causal:
+        keep = torch.arange(Sq)[:, None] >= torch.arange(Skv)[None, :]
+        p = p * keep
+    ds = p * (do.double() @ vv.transpose(-1, -2) - delta.double()[..., None])
+    a = _split(ds) if split else ds.to(BF16).double()
+    return (a @ kk * scale).to(BF16), delta
+
+
 def _emulated_dkv(q, k, v, do, lse, delta, causal):
     """K4 on the tensor cores: P and dS split into bf16 high and low parts
     before dV = P^T dO and dK = scale dS^T Q; per query head, in bf16."""
@@ -239,3 +268,21 @@ def test_tensor_core_roundings_stay_within_the_bf16_tolerance(shape):
         torch.testing.assert_close(
             kernel_bwd.group_sum(g, KV, BF16).float(),
             kernel_bwd.group_sum(w, KV, BF16).float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize(
+    "shape", EMULATED + [(1, 8, 1, 1024, 1024, 64, True)],   # G = 8, S 1024
+    ids=lambda s: f"hd{s[5]}-S{s[3]}")
+def test_dq_tensor_core_rounding_stays_within_the_bf16_tolerance(shape):
+    """K3's one extra rounding (dS to bf16), emulated, against the plain
+    pass A with the tolerance chip_smoke.py holds the kernel to on the
+    card; delta is the plain version's bit for bit."""
+    causal = shape[-1]
+    q, k, v, do = _inputs(shape, BF16, seed=13)
+    o, lse = kernel.flash_attention_plain(q, k, v, causal=causal)
+    dq_p, delta_p = kernel_bwd.bwd_dq_plain(q, k, v, o, lse, do,
+                                            causal=causal)
+    dq_e, delta_e = _emulated_dq(q, k, v, o, lse, do, causal)
+    assert torch.equal(delta_e, delta_p)
+    torch.testing.assert_close(dq_e.float(), dq_p.float(), atol=TOL,
+                               rtol=TOL)

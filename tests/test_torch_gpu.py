@@ -5,7 +5,8 @@
 This file imports neither ``jax`` nor the reference package, so it runs
 where only PyTorch is installed.  Each CUDA kernel is held against its plain
 version on the same inputs with the CPU tests' tolerances (the backward
-kernels in float32 within 1e-5, and bit-equal from run to run), and the
+kernels in float32 within 1e-5; the bf16 tensor-core kernels within the
+bf16 tolerances and bit-equal from run to run), and the
 serving and training paths with the kernels against the JAX reference's
 golden fixtures.
 ``python3 chip_smoke.py`` is the full on-card check.
@@ -60,27 +61,51 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, tol):
     _close(lse, lse_p, tol)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4),
-                                       (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("shape", [(2, 300, 80, 64, 64, 256),
-                                   (1, 100, 8, 16, 16, 32),
-                                   (1, 37, 3, 8, 128, 16)])
-def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, tol):
-    from repro_torch.kernels.ssd_scan import kernel, ops
-    b, l, h, p, n, chunk = shape
-    g = torch.Generator(device=cuda).manual_seed(1)
+def _ssd_inputs(cuda, shape, dtype, seed):
+    b, l, h, p, n, _ = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(b, l, h, p, generator=g, device=cuda).to(dtype)
     dt = torch.nn.functional.softplus(
         torch.randn(b, l, h, generator=g, device=cuda))
     A = -torch.exp(0.5 * torch.randn(h, generator=g, device=cuda))
     B = torch.randn(b, l, n, generator=g, device=cuda).to(dtype)
     C = torch.randn(b, l, n, generator=g, device=cuda).to(dtype)
-    D = torch.ones(h, device=cuda)
+    D = torch.randn(h, generator=g, device=cuda)
+    return x, dt, A, B, C, D
+
+
+# (b, l, h, p, n, chunk): Zamba2-2.7B's widths at the serving length, one
+# chunk, ragged chunks; Mamba-2-130M's state; the smoke configs' widths;
+# p 8 with n 128
+SSD_SHAPES = [(2, 300, 80, 64, 64, 256),
+              (1, 100, 8, 16, 16, 32),
+              (1, 37, 3, 8, 128, 16),
+              (4, 1024, 80, 64, 64, 256),
+              (1, 256, 8, 64, 64, 256),
+              (2, 300, 8, 64, 64, 64),
+              (1, 520, 4, 64, 128, 256),
+              (2, 100, 8, 16, 16, 32),
+              (1, 70, 3, 8, 16, 16),
+              (1, 90, 2, 24, 48, 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, shape, dtype, tol):
+    """K5 against its plain version; bf16 x, B and C run the tensor-core
+    kernels, two runs bit-equal."""
+    from repro_torch.kernels.ssd_scan import kernel, ops
+    l, chunk = shape[1], shape[-1]
+    x, dt, A, B, C, D = _ssd_inputs(cuda, shape, dtype, seed=1)
+    assert kernel._kernel_variant(x.dtype, B.dtype) == \
+        ("bf16 mma" if dtype == torch.bfloat16 else "fp32 fma")
     before = kernel.ssd_scan_chunked.launches
     y = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
     torch.cuda.synchronize()
     assert kernel.ssd_scan_chunked.launches == before + 1
+    assert torch.equal(y, ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk))
     pad = (-l) % chunk
     padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
               for t in (x, dt, B, C)]
@@ -144,8 +169,8 @@ MMA_SHAPES = [(2, 4, 2, 100, 130, 16, True),
 @pytest.mark.parametrize("shape", MMA_SHAPES,
                          ids=[f"hd{s[5]}" for s in MMA_SHAPES])
 def test_bf16_tensor_core_kernels_match_plain(cuda, shape):
-    """K2 and K4 in bfloat16 (the tensor-core kernels) against their plain
-    versions within the bf16 tolerance, two runs bit-equal."""
+    """K2, K3 and K4 in bfloat16 (the tensor-core kernels) against their
+    plain versions within the bf16 tolerance, two runs bit-equal."""
     from repro_torch.kernels.flash_attention import kernel, kernel_bwd
     causal = shape[-1]
     q, k, v, do = _bwd_inputs(cuda, shape, torch.bfloat16, seed=4)
@@ -161,8 +186,20 @@ def test_bf16_tensor_core_kernels_match_plain(cuda, shape):
     _close(o, o_p, 2e-2)
     _close(lse, lse_p, 2e-2)
 
-    _, delta = kernel_bwd.bwd_dq_plain(q, k, v, o_p, lse_p, do,
-                                       causal=causal)
+    before = kernel_bwd.flash_attention_bwd_dq.launches
+    dq, delta = kernel_bwd.flash_attention_bwd_dq(q, k, v, o_p, lse_p, do,
+                                                  causal=causal)
+    dq2, delta2 = kernel_bwd.flash_attention_bwd_dq(q, k, v, o_p, lse_p, do,
+                                                    causal=causal)
+    torch.cuda.synchronize()
+    assert kernel_bwd.flash_attention_bwd_dq.launches == before + 2
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    dq_p, delta_p = kernel_bwd.bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                            causal=causal)
+    _close(dq, dq_p, 2e-2)
+    _close(delta, delta_p, 1e-4)            # fp32 sums in another order
+
+    delta = delta_p
     before = kernel_bwd.flash_attention_bwd_dkv.launches
     got = kernel_bwd.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta,
                                              causal=causal)
@@ -190,16 +227,43 @@ def test_bf16_tensor_core_kernels_raise_on_unaligned_inputs(cuda):
                 for _ in range(3))
     lse = torch.zeros(shape[:3], device=cuda)
     before = (kernel.flash_attention_bhsd.launches,
+              kernel_bwd.flash_attention_bwd_dq.launches,
               kernel_bwd.flash_attention_bwd_dkv.launches)
     with pytest.raises(ValueError, match="16-byte"):
         kernel.flash_attention_bhsd(q, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, do)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel_bwd.flash_attention_bwd_dq(k, k, v, q, lse, do)   # o
     with pytest.raises(ValueError, match="16-byte"):
         kernel_bwd.flash_attention_bwd_dkv(q, k, v, do, lse, lse)
     rows = torch.randn(1, 2, 64, 68, device=cuda).to(torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         kernel.flash_attention_bhsd(rows[..., :64], k, v)  # row stride 68
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kernel_bwd.flash_attention_bwd_dq(k, k, v, k, lse, rows[..., :64])
     assert (kernel.flash_attention_bhsd.launches,
+            kernel_bwd.flash_attention_bwd_dq.launches,
             kernel_bwd.flash_attention_bwd_dkv.launches) == before
+
+
+@pytest.mark.gpu
+def test_bf16_ssd_tensor_core_kernels_raise_outside_their_limits(cuda):
+    """A bf16 call the tensor-core SSD kernels cannot take raises; it never
+    goes to the FMA kernel or to the plain version."""
+    from repro_torch.kernels.ssd_scan import kernel
+    x, dt, A, B, C, D = _ssd_inputs(cuda, (1, 64, 2, 16, 16, 32),
+                                    torch.bfloat16, seed=7)
+    before = kernel.ssd_scan_chunked.launches
+    buf = torch.empty(x.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:].view(x.shape).copy_(x)    # 2 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.ssd_scan_chunked(shifted, dt, A, B, C, D, chunk=32)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kernel.ssd_scan_chunked(x, dt, A, B, C, D, chunk=8)
+    with pytest.raises(ValueError, match="a multiple of 8"):
+        kernel.ssd_scan_chunked(x[..., :12], dt, A, B, C, D, chunk=32)
+    assert kernel.ssd_scan_chunked.launches == before
 
 
 @pytest.mark.gpu
