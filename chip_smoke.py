@@ -26,11 +26,15 @@ version on the card, and drives the port's two paths:
   backward kernels, checked against the same model through the kernels'
   plain versions in float32.
 
-Then it times each kernel at the shapes its path gives it.
+It times each kernel at the shapes its path gives it: the lifetime scan
+right after the profiling path (also on one segment that crosses every
+range of the kernel and on a random trace of the same length), the others
+after training.
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
 phase (``device``, ``build`` with each kernel's registers, spills and
-tensor-core instructions in its SASS, ``kernel_check`` per kernel, ``cli``,
+tensor-core instructions in its SASS, ``kernel_check`` per kernel (the
+lifetime scan's on random and structured streams), ``cli``,
 ``full``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
@@ -63,6 +67,9 @@ INT_OPS_PER_S = 33.5e12
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
 KERNEL_SOURCE = "src/repro_torch/csrc/lifetime_scan.cu"
 KERNEL_REPLACES = "src/repro/kernels/lifetime_scan/kernel.py:49"
+# K1's single-segment case and its timing: the full-depth TinyLlama
+# subpartition's event count
+LONG_SEGMENT_EVENTS = 11_185_152
 SOURCES = ("lifetime_scan", "flash_attention_fwd", "ssd_scan",
            "flash_attention_bwd")
 FA_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
@@ -147,11 +154,75 @@ def random_sorted_trace(n, n_addrs, p_write, seed, torch, device):
     return t[order], a[order], w[order]
 
 
+def segments_of(n, length, shift, torch, device):
+    """A sorted stream of segments of exactly ``length`` events: a write
+    at every index ``shift`` mod ``length``, then reads of one address."""
+    i = torch.arange(n, device=device, dtype=torch.int64)
+    return (3 * i + 2 ** 40, ((i - shift) // length) * 3 + 2 ** 31,
+            (i - shift) % length == 0)
+
+
+def long_segment(n, torch, device):
+    """One write, then only reads, at one address: one segment that spans
+    every range of the kernel."""
+    i = torch.arange(n, device=device, dtype=torch.int64)
+    return 3 * i + 2 ** 40, torch.full_like(i, 2 ** 31 + 5), i == 0
+
+
+def structured_traces(torch, device, n_bins):
+    """K1's structured cases, as (name, thunk): shapes that put segment
+    edges on the kernel's range edges, cross every range, or hold one kind
+    of event only."""
+    from repro_torch.kernels.lifetime_scan import kernel as k
+    cases = [
+        ("long_segment", lambda: long_segment(LONG_SEGMENT_EVENTS, torch,
+                                              device)),
+        ("reads_only", lambda: random_sorted_trace(
+            1_000_003, 125_000, 0.0, seed=101, torch=torch, device=device)),
+        ("writes_only", lambda: random_sorted_trace(
+            1_000_003, 125_000, 1.0, seed=102, torch=torch, device=device)),
+    ]
+    n = 4_000_000
+    slice_, _ = k.launch_grid(n, n_bins, device)
+    for what, length in (("slice", slice_), ("range", 8 * slice_)):
+        for shift in (0, 1):
+            cases.append((f"{what}_long_segments_shift{shift}",
+                          lambda length=length, shift=shift: segments_of(
+                              n, length, shift, torch, device)))
+    # n at a multiple of the range length (every block's range full), and
+    # one event either side
+    slice_, blocks = k.launch_grid(5_000_000, n_bins, device)
+    whole = 8 * slice_ * blocks
+    for dn in (-1, 0, 1):
+        cases.append((f"n_at_range_multiple{dn:+d}",
+                      lambda m=whole + dn: random_sorted_trace(
+                          m, m // 8, 0.35, seed=103, torch=torch,
+                          device=device)))
+    return cases
+
+
 def phase_kernel_check(torch, device) -> dict:
     from repro_torch.kernels.lifetime_scan import kernel as k
     from repro_torch.kernels.lifetime_scan.ops import (default_edges,
                                                        integer_edges)
     edges = torch.from_numpy(integer_edges(default_edges())).to(device)
+    n_bins = edges.shape[0] - 1
+
+    def check(t, a, w, what):
+        hist, stats = k.lifetime_scan_sorted(t, a, w, edges)
+        torch.cuda.synchronize()
+        hist_p, stats_p = k.lifetime_scan_plain(t, a, w, edges)
+        err = max(int((hist - hist_p).abs().max()),
+                  int((stats - stats_p).abs().max()))
+        if err != 0:
+            raise AssertionError(
+                f"lifetime_scan kernel != plain version at {what}: "
+                f"{stats.tolist()} vs {stats_p.tolist()}")
+        if int(stats[0] + stats[1]) < 1 or \
+                int(stats[4] + stats[5]) != t.shape[0]:
+            raise AssertionError(f"kernel_check trace is degenerate: {what}")
+        return err
+
     cases, max_err = 0, 0
     for n in (1, 257, 100_000, 10_000_000):
         for n_addrs in (3, max(4, n // 8)):
@@ -159,23 +230,29 @@ def phase_kernel_check(torch, device) -> dict:
                 t, a, w = random_sorted_trace(
                     n, n_addrs, p_write, seed=cases, torch=torch,
                     device=device)
-                hist, stats = k.lifetime_scan_sorted(t, a, w, edges)
-                torch.cuda.synchronize()
-                hist_p, stats_p = k.lifetime_scan_plain(t, a, w, edges)
-                err = max(int((hist - hist_p).abs().max()),
-                          int((stats - stats_p).abs().max()))
-                max_err = max(max_err, err)
-                if err != 0:
-                    raise AssertionError(
-                        f"lifetime_scan kernel != plain version at n={n} "
-                        f"n_addrs={n_addrs} p_write={p_write}: "
-                        f"{stats.tolist()} vs {stats_p.tolist()}")
-                if int(stats[0] + stats[1]) < 1 or \
-                        int(stats[4] + stats[5]) != n:
-                    raise AssertionError("kernel_check trace is degenerate")
+                max_err = max(max_err, check(
+                    t, a, w, f"n={n} n_addrs={n_addrs} p_write={p_write}"))
                 cases += 1
+    structured = []
+    for name, make in structured_traces(torch, device, n_bins):
+        t, a, w = make()
+        err = check(t, a, w, name)
+        max_err = max(max_err, err)
+        slice_, blocks = k.launch_grid(t.shape[0], n_bins, device)
+        structured.append({"case": name, "events": t.shape[0],
+                           "slice": slice_, "blocks": blocks,
+                           "max_abs_err": err})
+        del t, a, w
+    # an empty stream returns zeros and launches nothing
+    e = torch.zeros(0, dtype=torch.int64, device=device)
+    before = k.lifetime_scan_sorted.launches
+    hist, stats = k.lifetime_scan_sorted(e, e, e.bool(), edges)
+    if hist.any() or stats.any() or \
+            k.lifetime_scan_sorted.launches != before:
+        raise AssertionError("lifetime_scan of an empty stream")
     emit("kernel_check", kernel="lifetime_scan", cases=cases,
-         tolerance="exact (int64)", max_abs_err=max_err)
+         structured=structured, tolerance="exact (int64)",
+         max_abs_err=max_err)
     return {"max_abs_err": max_err}
 
 
@@ -1187,7 +1264,7 @@ def phase_full(torch, np, device, golden) -> dict:
     import math
 
     from repro_torch.core import ProfileSession
-    from repro_torch.core.lifetime import (lifetimes_of_trace,
+    from repro_torch.core.lifetime import (_to_device, lifetimes_of_trace,
                                            sort_by_addr_time)
     from repro_torch.kernels.lifetime_scan import kernel as k
     from repro_torch.kernels.lifetime_scan.ops import (default_edges,
@@ -1256,6 +1333,31 @@ def phase_full(torch, np, device, golden) -> dict:
             biggest = t_sub
 
     launches = k.lifetime_scan_sorted.launches   # main path ends here
+
+    # the entry's time split into its steps, each ended by a synchronize,
+    # summed over the subpartitions (after the main path's count is read)
+    split = dict.fromkeys(("copy_to_card", "sort_and_gather", "kernel",
+                           "copy_back"), 0.0)
+    for sub in range(len(trace.names)):
+        t_sub = trace.select(sub)
+        marks = [time.perf_counter()]
+        e = torch.from_numpy(ie).to(device)
+        t = _to_device(t_sub.time_cycles, torch.int64, device)
+        a = _to_device(t_sub.addr, torch.int64, device)
+        w = _to_device(t_sub.is_write, torch.bool, device)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        order = sort_by_addr_time(t, a)
+        t, a, w = t[order], a[order], w[order]
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        hist, stats = k.lifetime_scan_sorted(t, a, w, e)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        hist, stats = hist.cpu(), stats.cpu()
+        marks.append(time.perf_counter())
+        for key, t0_, t1_ in zip(split, marks, marks[1:]):
+            split[key] += t1_ - t0_
     check_report_against_golden(report, entry)
     for name, rep in report["subpartitions"].items():
         comp = rep["composition"]
@@ -1275,7 +1377,7 @@ def phase_full(torch, np, device, golden) -> dict:
                               for i, n in enumerate(trace.names)},
          host_profile_s=t1 - t0, analyze_s=t2 - t1,
          device_extract_s=extract_s, host_compose_s=t3 - t2,
-         kernel_entry_s=kernel_s,
+         kernel_entry_s=kernel_s, kernel_entry_split_s=split,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          lifetime_scan_launches=launches,
          golden=f"n_layers={FULL_LAYERS} entry: counts, histogram, "
@@ -1290,20 +1392,105 @@ def phase_full(torch, np, device, golden) -> dict:
             "edges": torch.from_numpy(ie).to(device)}
 
 
+def device_kernels_per_call(torch, fn, calls: int) -> dict:
+    """{device op: {launches, device_us} per call} of ``fn`` on the card,
+    from a ``torch.profiler`` trace of ``calls`` calls after a warm-up;
+    empty if the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.name
+        if "lifetime_scan_kernel" in name:      # the mangled signature
+            name = "lifetime_scan_kernel"
+        n, us = out.get(name, (0, 0.0))
+        out[name] = (n + 1, us + ev.time_range.elapsed_us())
+    return {k: {"launches": n / calls, "device_us": us / calls}
+            for k, (n, us) in out.items()}
+
+
+# run by a fresh interpreter: argv[1] holds K1's inputs at the subpartition
+PROFILE_K1 = """
+import json, sys
+import torch
+import chip_smoke as cs
+from repro_torch.kernels.lifetime_scan import kernel as k
+t, a, w, e = (x.cuda() for x in torch.load(sys.argv[1]))
+print(json.dumps(cs.device_kernels_per_call(
+    torch, lambda: k.lifetime_scan_sorted(t, a, w, e), calls=10)))
+"""
+
+
+def profile_lifetime_scan(torch, t, a, w, edges) -> dict:
+    """``device_kernels_per_call`` of K1 on these inputs, traced in a fresh
+    interpreter: on the H100, ``torch.profiler`` (CUPTI) ended this process
+    with a segmentation fault when started after the serving and training
+    phases."""
+    path = ROOT / "build" / "chip_smoke_k1_inputs.pt"
+    torch.save(tuple(x.cpu() for x in (t, a, w, edges)), path)
+    try:
+        proc = subprocess.run([sys.executable, "-c", PROFILE_K1, str(path)],
+                              cwd=ROOT, capture_output=True, text=True)
+    finally:
+        path.unlink()
+    if proc.returncode != 0:
+        raise RuntimeError(f"K1's profile run exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def time_lifetime_scan(torch, full, check) -> dict:
-    """K1 at the largest subpartition of the full-depth profiling path."""
+    """K1 at the largest subpartition of the full-depth profiling path,
+    then on one segment and on a random trace of the same length."""
     from repro_torch.kernels.lifetime_scan import kernel as k
     t, a, w = full["sorted"]
     edges = full["edges"]
     n, n_bins = t.shape[0], edges.shape[0] - 1
 
-    ms = statistics.median(cuda_ms(
-        lambda: k.lifetime_scan_sorted(t, a, w, edges), runs=20))
+    def call():
+        return k.lifetime_scan_sorted(t, a, w, edges)
+
+    def warm(fn):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+
+    warm(call)
+    ms = statistics.median(cuda_ms(call, runs=20))
+    # many calls between two events: the host's time per call hides behind
+    # the card's, as when the path runs K1 after its sort
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        call()
+    stop.record()
+    torch.cuda.synchronize()
+    back_to_back_ms = start.elapsed_time(stop) / 50
     plain_ms = statistics.median(cuda_ms(
         lambda: k.lifetime_scan_plain(t, a, w, edges), runs=5))
-    hist, stats = k.lifetime_scan_sorted(t, a, w, edges)
+    per_call = profile_lifetime_scan(torch, t, a, w, edges)
+    hist, stats = call()
     n_segments = int(stats[0] + stats[1])
     live = int(stats[0])
+    device = t.device
+    others = {}
+    for name, trace in (
+            ("long_segment", long_segment(LONG_SEGMENT_EVENTS, torch,
+                                          device)),
+            ("random", random_sorted_trace(n, n // 8, 0.35, seed=7,
+                                           torch=torch, device=device))):
+        warm(lambda tr=trace: k.lifetime_scan_sorted(*tr, edges))
+        others[f"{name}_ms"] = statistics.median(cuda_ms(
+            lambda tr=trace: k.lifetime_scan_sorted(*tr, edges), runs=20))
+        del trace
 
     # bytes: every input read once, every output written once
     n_bytes = n * (8 + 8 + 1) + (n_bins + 1) * 8 + n_bins * 8 + 8 * 8
@@ -1313,13 +1500,20 @@ def time_lifetime_scan(torch, full, check) -> dict:
     n_ops = 2 * n + live * (1 + (n_bins + 1).bit_length()) + n_segments
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / INT_OPS_PER_S * 1e3
+    slice_, blocks = k.launch_grid(n, n_bins, device)
+    kernel_launches = per_call.get("lifetime_scan_kernel", {}).get(
+        "launches")
     row = {
         "name": "lifetime_scan", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": full["launches"],
         "max_abs_err": check["max_abs_err"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
+        "library_ms": None, "back_to_back_ms": back_to_back_ms,
+        **others,
+        "cuda_launches_per_call": kernel_launches,
+        "device_kernels_per_call": per_call,
+        "grid": {"blocks": blocks, "events_per_warp_slice": slice_},
         "events": n, "segments": n_segments, "bytes": n_bytes,
     }
     return row
@@ -1355,12 +1549,15 @@ def main() -> int:
     ssd_check = phase_ssd_check(torch, device)
     phase_cli(golden)
     full = phase_full(torch, np, device, golden)
+    # K1 is timed beside its own path, before the serving and training
+    # phases, and its inputs are freed before them
+    rows = [time_lifetime_scan(torch, full, check)]
+    del full
     bwd_check = phase_bwd_check(torch, device)
     phase_golden(torch, np, device)
     serve = phase_serve(torch, device)
     phase_train_golden(torch, np, device)
     train = phase_train(torch, device)
-    rows = [time_lifetime_scan(torch, full, check)]
     rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
     rows += time_training_kernels(torch, device, train, bwd_check, rows[1])
     print(json.dumps({"kernels": rows}), flush=True)

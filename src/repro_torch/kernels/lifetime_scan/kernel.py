@@ -16,14 +16,17 @@ boundary or the end of the stream.  With at least one read it is a live
 lifetime of (last read - first event) cycles; with none it is an orphan.
 
 :func:`lifetime_scan_sorted` is the wrapper: on CUDA tensors it launches
-the hand-written kernel (``csrc/lifetime_scan.cu``, built at first use) or
+the hand-written kernel (``csrc/lifetime_scan.cu``, built at first use; one
+memset and one kernel launch per call, counted once in ``.launches``) or
 raises; on CPU tensors it runs :func:`lifetime_scan_plain`, the same
 function in stock torch ops, which is also what the tests and the on-card
-comparison hold the kernel against.
+comparison hold the kernel against.  ``hist`` and ``stats`` of a CUDA call
+are views of one buffer that also holds the kernel's scratch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -32,7 +35,9 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_BINS = 2048          # edges + histogram must fit static shared memory
-_BLOCKS_PER_SM = 8       # persistent grid: 8 x 256 threads fill an SM
+_BLOCKS_PER_SM = 8       # cap of the one-wave grid (the kernel's occupancy
+                         # sets it lower); sizes the ranges' summaries
+_SUMMARY = 4             # int64 per range summary (csrc: struct Summary)
 
 _I64_MIN = torch.iinfo(torch.int64).min
 
@@ -95,9 +100,40 @@ def _launcher():
     fn = _build.load_library("lifetime_scan").lifetime_scan_launch
     ptr = ctypes.c_void_p
     fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int,
-                   ptr, ptr, ctypes.c_int, ptr]
+                   ptr, ctypes.c_int, ptr]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_query():
+    fn = _build.load_library("lifetime_scan").lifetime_scan_grid
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _max_blocks(index: int) -> int:
+    return torch.cuda.get_device_properties(
+        index).multi_processor_count * _BLOCKS_PER_SM
+
+
+def launch_grid(n: int, n_bins: int, device) -> tuple[int, int]:
+    """(events per warp slice, blocks) of the kernel's launch for ``n``
+    events on a CUDA ``device``; a block's range is eight slices.  The
+    on-card checks use it to put segment edges on range edges."""
+    dev = torch.device(device)
+    slice_, blocks = ctypes.c_longlong(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = _grid_query()(n, n_bins, _max_blocks(dev.index),
+                            ctypes.byref(slice_), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"lifetime_scan grid query failed: CUDA error "
+                           f"{err}")
+    return slice_.value, blocks.value
 
 
 def lifetime_scan_sorted(t: torch.Tensor, addr: torch.Tensor,
@@ -119,22 +155,29 @@ def lifetime_scan_sorted(t: torch.Tensor, addr: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"lifetime_scan runs on cuda or cpu, not {dev}")
 
-    hist = torch.zeros(n_bins, dtype=torch.int64, device=dev)
-    stats = torch.zeros(8, dtype=torch.int64, device=dev)
     if n == 0:
-        return hist, stats
+        return (torch.zeros(n_bins, dtype=torch.int64, device=dev),
+                torch.zeros(8, dtype=torch.int64, device=dev))
     launch = _launcher()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    max_blocks = _max_blocks(dev.index)
+    # one buffer: hist, stats, the last block's ticket, then the ranges'
+    # summaries; the launch zeroes the first three with one memset
+    buf = torch.empty(n_bins + 8 + 1 + _SUMMARY * max_blocks,
+                      dtype=torch.int64, device=dev)
+    # the launch goes to the current device: switch only if it is another.
+    # The raw stream handle is asked for directly: a ``torch.cuda.Stream``
+    # object costs microseconds of host time, and on an idle card the host
+    # time before the launch adds to the call's
+    with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+          else contextlib.nullcontext()):
         err = launch(t.data_ptr(), addr.data_ptr(), w.data_ptr(),
-                     edges.data_ptr(), n, n_bins, hist.data_ptr(),
-                     stats.data_ptr(), sms * _BLOCKS_PER_SM, stream)
+                     edges.data_ptr(), n, n_bins, buf.data_ptr(),
+                     max_blocks, torch._C._cuda_getCurrentRawStream(dev.index))
     lifetime_scan_sorted.launches += 1
     if err != 0:
         raise RuntimeError(
             f"lifetime_scan kernel launch failed: CUDA error {err}")
-    return hist, stats
+    return buf[:n_bins], buf[n_bins:n_bins + 8]
 
 
 lifetime_scan_sorted.launches = 0

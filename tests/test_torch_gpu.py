@@ -6,9 +6,10 @@ This file imports neither ``jax`` nor the reference package, so it runs
 where only PyTorch is installed.  Each CUDA kernel is held against its plain
 version on the same inputs with the CPU tests' tolerances (the backward
 kernels in float32 within 1e-5; the bf16 tensor-core kernels within the
-bf16 tolerances and bit-equal from run to run), and the
-serving and training paths with the kernels against the JAX reference's
-golden fixtures.
+bf16 tolerances and bit-equal from run to run; the lifetime scan exactly,
+on structured streams that put segment edges on the kernel's range edges),
+and the serving and training paths with the kernels against the JAX
+reference's golden fixtures.
 ``python3 chip_smoke.py`` is the full on-card check.
 """
 
@@ -353,3 +354,60 @@ def test_training_path_reproduces_the_train_golden_fixture_on_the_card(cuda):
     np.testing.assert_allclose(got["layers"]["attn"]["wq"],
                                final["layers"]["attn"]["wq"], atol=1e-5,
                                rtol=1e-5)
+
+
+def _k1_case(case, dev):
+    """K1's structured cases on the card, sorted by (addr, time): one
+    segment across every range, one kind of event only, segments exactly
+    one warp slice or one block range long (shifted by 0 or 1 event), and
+    streams that fill every range exactly, or one event short or over."""
+    from repro_torch.kernels.lifetime_scan import kernel
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def arange(n):
+        return torch.arange(n, device=dev, dtype=torch.int64)
+
+    def random(n, n_addrs, p_write):
+        t = torch.randint(0, 10 * n, (n,), generator=g, device=dev)
+        a = torch.randint(0, n_addrs, (n,), generator=g, device=dev)
+        w = torch.rand(n, generator=g, device=dev) < p_write
+        by_t = torch.sort(t, stable=True).indices
+        order = by_t[torch.sort(a[by_t], stable=True).indices]
+        return t[order], a[order], w[order]
+
+    n = 2_000_000
+    if case == "long_segment":
+        i = arange(10_000_001)
+        return 3 * i + 2 ** 40, torch.full_like(i, 7), i == 0
+    if case in ("reads_only", "writes_only"):
+        return random(n, n // 8, 0.0 if case == "reads_only" else 1.0)
+    if case.startswith(("slice", "range")):
+        slice_, _ = kernel.launch_grid(n, 64, dev)
+        length = slice_ * (8 if case.startswith("range") else 1)
+        shift = int(case[-1])
+        i = arange(n)
+        return 3 * i, (i - shift) // length, (i - shift) % length == 0
+    slice_, blocks = kernel.launch_grid(n, 64, dev)
+    m = 8 * slice_ * blocks + {"minus1": -1, "exact": 0, "plus1": 1}[
+        case.split("_")[-1]]
+    return random(m, m // 8, 0.35)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "long_segment", "reads_only", "writes_only", "slice_shift0",
+    "slice_shift1", "range_shift0", "range_shift1", "full_ranges_minus1",
+    "full_ranges_exact", "full_ranges_plus1"])
+def test_lifetime_scan_kernel_matches_plain_on_structured_cases(cuda, case):
+    from repro_torch.kernels.lifetime_scan import kernel
+    from repro_torch.kernels.lifetime_scan.ops import (default_edges,
+                                                       integer_edges)
+    t, a, w = _k1_case(case, cuda)
+    e = torch.from_numpy(integer_edges(default_edges())).to(cuda)
+    before = kernel.lifetime_scan_sorted.launches
+    hist, stats = kernel.lifetime_scan_sorted(t, a, w, e)
+    torch.cuda.synchronize()
+    assert kernel.lifetime_scan_sorted.launches == before + 1
+    h_p, s_p = kernel.lifetime_scan_plain(t, a, w, e)
+    assert torch.equal(hist, h_p) and torch.equal(stats, s_p)
+    assert int(stats[4] + stats[5]) == t.shape[0]
