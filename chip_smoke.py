@@ -12,6 +12,12 @@ version on the card, and drives the port's two paths:
   width and depth of TinyLlama-1.1B and the ``lifetime_scan`` entry point on
   the traces the session profiled, checked against the session's own
   lifetimes and the golden file written from the JAX reference;
+* GPU-cache profiling: ``ProfileSession("gpu")`` -> analyze -> compose on
+  TinyLlama-1.1B's op stream at full width and depth (22 layers, seq 128,
+  line sampling 8) and on every ``mlperf`` workload, the L1 and L2 replays
+  on the card by the ``cache_replay`` kernel (two launches per run), each
+  run held against ``golden_gpu_cachesim.json`` written from the JAX
+  reference (trace digests, counts, histograms, capacity fractions);
 * serving: ``launch.serve.generate`` on the Zamba2 smoke config against the
   JAX reference's golden logits and tokens, then Zamba2-2.7B at full width
   and depth (54 Mamba-2 blocks, 9 shared-attention applications) with the
@@ -28,14 +34,16 @@ version on the card, and drives the port's two paths:
 
 It times each kernel at the shapes its path gives it: the lifetime scan
 right after the profiling path (also on one segment that crosses every
-range of the kernel and on a random trace of the same length), the others
-after training.
+range of the kernel and on a random trace of the same length), the cache
+replay right after the GPU-cache path (at its L1 and L2 shapes and on a
+1 M-event mixed stream), the others after training.
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
 phase (``device``, ``build`` with each kernel's registers, spills and
 tensor-core instructions in its SASS, ``kernel_check`` per kernel (the
-lifetime scan's on random and structured streams), ``cli``,
-``full``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
+lifetime scan's on random and structured streams, the cache replay's on
+random, skewed, empty, near-2^59 and mixed streams), ``cli``, ``full``,
+``gpu``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
 to a plain version.
@@ -45,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -71,13 +80,28 @@ KERNEL_REPLACES = "src/repro/kernels/lifetime_scan/kernel.py:49"
 # subpartition's event count
 LONG_SEGMENT_EVENTS = 11_185_152
 SOURCES = ("lifetime_scan", "flash_attention_fwd", "ssd_scan",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "cache_replay")
 FA_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:26"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:23"
 GOLDEN_ZAMBA2 = ROOT / "tests" / "fixtures" / "torch" / \
     "golden_zamba2_smoke.npz"
+GOLDEN_GPU = ROOT / "tests" / "fixtures" / "torch" / \
+    "golden_gpu_cachesim.json"
+B6_SOURCE = "src/repro_torch/csrc/cache_replay.cu"
+B6_REPLACES = "src/repro/backends/cachesim.py:143"
+# the GPU-cache path's main run: the golden entry at TinyLlama's own depth
+GPU_MAIN = "tinyllama_1_1b@22"
+# B6's kernel_check: ways (8 and 16 have their own kernel, the others the
+# 32-wide one) by n_sets, events per case capped so that the plain
+# version's slot loop stays short
+B6_WAYS = (1, 2, 3, 4, 8, 16, 32)
+B6_SETS = (1, 8, 128, 2048, 4096)
+B6_MAX_SLOTS = 2000
+# the 1 M-event stream of benchmarks/cachesim_bench.py (_mixed_stream)
+MIXED = {"n": 1_000_000, "write_fraction": 0.35, "hot_lines": 2048,
+         "sweep_lines": 1 << 20, "seed": 0}
 # the CPU tests' tolerances (atol = rtol), per dtype
 FA_TOL = {"float32": 2e-6, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
@@ -1254,8 +1278,21 @@ def phase_cli(golden) -> None:
         raise AssertionError(f"profile CLI returned {rc}")
     events = check_report_against_golden(json.loads(out.read_text()),
                                          golden["entries"]["2"])
-    emit("cli", events=events, seconds=time.perf_counter() - t0,
-         golden="n_layers=2 entry: counts and capacity fractions equal")
+    seconds = time.perf_counter() - t0
+    # the GPU-cache backend's dry run on the card
+    from repro_torch.kernels.cache_replay import kernel as b6
+    before = b6.cache_replay_sorted.launches
+    dry = io.StringIO()
+    with contextlib.redirect_stdout(dry):
+        rc = cli_main(["profile", "--backend", "gpu", "--dry-run"])
+    if rc != 0 or "dry-run ok: backend=cachesim" not in dry.getvalue() or \
+            "device=cuda" not in dry.getvalue() or \
+            b6.cache_replay_sorted.launches != before + 2:
+        raise AssertionError(f"profile --backend gpu --dry-run: rc {rc}, "
+                             f"{dry.getvalue()[-300:]}")
+    emit("cli", events=events, seconds=seconds,
+         golden="n_layers=2 entry: counts and capacity fractions equal",
+         gpu_dry_run=dry.getvalue().strip().splitlines()[-1])
 
 
 def phase_full(torch, np, device, golden) -> dict:
@@ -1519,6 +1556,323 @@ def time_lifetime_scan(torch, full, check) -> dict:
     return row
 
 
+def mixed_stream(np):
+    """``benchmarks/cachesim_bench.py``'s ``_mixed_stream``: half hot-set
+    re-references, half long streaming sweeps, shuffled (host numpy)."""
+    n = MIXED["n"]
+    rng = np.random.RandomState(MIXED["seed"])
+    hot = rng.randint(0, MIXED["hot_lines"], n // 2)
+    sweep = np.arange(n - n // 2) % MIXED["sweep_lines"]
+    lines = np.concatenate([hot, sweep])
+    rng.shuffle(lines)
+    w = rng.rand(n) < MIXED["write_fraction"]
+    return lines.astype(np.int64), w
+
+
+def b6_layout(torch, lines, w, n_sets):
+    """(packed, offsets, counts) of a stream on the card: B6's inputs."""
+    from repro_torch.kernels.cache_replay.ops import partition_by_set
+    order, offsets, counts = partition_by_set(lines, n_sets)
+    return (lines * 2 + w.to(torch.int64))[order], offsets, counts
+
+
+def phase_cache_replay_check(torch, np, device) -> dict:
+    """B6 against its plain version on the card, bit for bit, and against
+    itself on a second run: random streams over n_sets 1 to 4096 and ways
+    1 to 32 under both write policies, a stream in one set, an empty
+    stream, line addresses near 2^59 - 1, and the 1 M-event mixed
+    stream."""
+    from repro_torch.kernels.cache_replay import kernel as k
+
+    def check(lines, w, n_sets, ways, wa, what):
+        packed, offsets, counts = b6_layout(torch, lines, w, n_sets)
+        before = k.cache_replay_sorted.launches
+        got = k.cache_replay_sorted(packed, offsets, counts, ways, wa)
+        again = k.cache_replay_sorted(packed, offsets, counts, ways, wa)
+        torch.cuda.synchronize()
+        n = packed.shape[0]
+        if k.cache_replay_sorted.launches != before + 2 * (n > 0):
+            raise AssertionError(f"cache_replay {what}: the wrapper did not "
+                                 f"launch once per call")
+        if not torch.equal(got, again):
+            raise AssertionError(f"cache_replay {what}: two runs differ")
+        want = k.cache_replay_plain(packed, offsets, counts, ways, wa)
+        if not torch.equal(got, want):
+            bad = int((got != want).nonzero()[0])
+            raise AssertionError(
+                f"cache_replay {what}: kernel != plain version at sorted "
+                f"position {bad}: {int(got[bad])} vs {int(want[bad])}")
+        hits = int((got & 1).sum())
+        return {"events": n, "chain_steps": int(counts.max()) if n else 0,
+                "hits": hits}
+
+    g = torch.Generator(device=device).manual_seed(600)
+    cases, detail = 0, []
+    for ways in B6_WAYS:
+        for n_sets in B6_SETS:
+            n = min(B6_MAX_SLOTS * n_sets // 2, 500_000)
+            lines = torch.randint(0, 8 + 3 * n_sets * ways, (n,),
+                                  generator=g, device=device)
+            if cases % 2:
+                lines += 2 ** 31 + 7          # int64 tags past 2**31
+            w = torch.rand(n, generator=g, device=device) < 0.35
+            for wa in (True, False):
+                check(lines, w, n_sets, ways, wa,
+                      f"n_sets={n_sets} ways={ways} wa={wa}")
+                cases += 1
+    structured = []
+    lines = torch.randint(0, 64, (4096,), generator=g, device=device)
+    w = torch.rand(4096, generator=g, device=device) < 0.35
+    mixed_l, mixed_w = (torch.from_numpy(x).to(device)
+                        for x in mixed_stream(np))
+    top = 2 ** 59 - 1 - torch.randint(0, 3 * 64 * 4, (50_000,), generator=g,
+                                      device=device)
+    e = torch.zeros(0, dtype=torch.int64, device=device)
+    for name, args in (("one_set", (lines * 128, w, 128, 8)),
+                       ("empty", (e, e.bool(), 128, 8)),
+                       ("near_2^59", (top, w.repeat(13)[:50_000], 64, 4)),
+                       ("mixed_1M", (mixed_l, mixed_w, 128, 8))):
+        for wa in (True, False):
+            r = check(*args, wa, f"{name} wa={wa}")
+            structured.append({"case": name, "write_allocate": wa, **r})
+    emit("kernel_check", kernel="cache_replay", cases=cases,
+         ways=list(B6_WAYS), n_sets=list(B6_SETS),
+         structured=structured, repeat_runs="bit-equal",
+         tolerance="exact (int64 result words)", max_abs_err=0)
+    return {"max_abs_err": 0}
+
+
+def reset_cache_counts():
+    from repro_torch.backends import cachesim
+    from repro_torch.kernels.cache_replay import kernel as k
+    k.cache_replay_sorted.launches = 0
+    k.cache_replay_plain.calls = 0
+    cachesim._simulate_cache.calls = 0
+
+
+def cache_counts() -> dict:
+    from repro_torch.backends import cachesim
+    from repro_torch.kernels.cache_replay import kernel as k
+    return {"cache_replay": k.cache_replay_sorted.launches,
+            "plain": k.cache_replay_plain.calls,
+            "scalar": cachesim._simulate_cache.calls}
+
+
+def trace_digest(np, t_sub) -> str:
+    """SHA-256 of one subpartition's trace in trace order, as
+    ``tests/make_torch_golden.py`` writes it."""
+    import hashlib
+    h = hashlib.sha256()
+    for arr, dt in ((t_sub.time_cycles, "<i8"), (t_sub.addr, "<i8"),
+                    (t_sub.is_write, "u1"), (t_sub.hit, "u1")):
+        h.update(np.ascontiguousarray(np.asarray(arr).astype(dt)).tobytes())
+    return h.hexdigest()
+
+
+def check_gpu_entry(np, session, report, entry, key) -> dict:
+    """A gpu session's trace, lifetimes and report against one golden
+    entry; returns {sub: short-lived fraction at 1 us}."""
+    from repro_torch.kernels.lifetime_scan.ops import (default_edges,
+                                                       integer_edges)
+    ie = integer_edges(default_edges())
+    trace = session.trace
+    if trace.n_events != entry["n_events"]:
+        raise AssertionError(f"gpu {key}: {trace.n_events} events, golden "
+                             f"{entry['n_events']}")
+    short = {}
+    for sub, name in enumerate(trace.names):
+        g, rep = entry["subpartitions"][name], report["subpartitions"][name]
+        t_sub = trace.select(sub)
+        host = session.subpartition_stats(name)[1].numpy()
+        lt = host.lifetime_cycles[~host.orphan]
+        bins = np.searchsorted(ie, lt, side="right") - 1
+        n_reads, n_writes = t_sub.counts()
+        got = {"n_events": t_sub.n_events, "n_reads": n_reads,
+               "n_writes": n_writes,
+               "n_hits": int(np.asarray(t_sub.hit).sum()),
+               "trace_sha256": trace_digest(np, t_sub),
+               "n_lifetimes": rep["n_lifetimes"],
+               "unique_addrs": rep["unique_addrs"],
+               "orphans": int(host.orphan.sum()), "live": int(len(lt)),
+               "hist": np.bincount(bins, minlength=len(ie) - 1).tolist(),
+               "sum_lt": int(lt.sum()),
+               "max_lt": int(lt.max()) if len(lt) else 0,
+               "composition_devices": rep["composition"]["devices"],
+               "capacity_fractions":
+                   rep["composition"]["capacity_fractions"]}
+        for field, value in got.items():
+            if value != g[field]:
+                raise AssertionError(f"gpu {key} {name}.{field}: {value} != "
+                                     f"golden {g[field]}")
+        comp = rep["composition"]
+        if not all(math.isfinite(v) for v in (
+                rep["duration_s"], comp["energy_vs_sram"],
+                comp["area_vs_sram"])):
+            raise AssertionError(f"gpu {key} {name}: report is not finite")
+        short[name] = session.short_lived_fraction(name, 1e-6)
+    return short
+
+
+def gpu_time_split(torch, np, device, program, cfg) -> dict:
+    """The main run's steps again, one by one, each ended by a
+    synchronize; returns the split and B6's inputs at L1 and L2."""
+    from repro_torch.backends import cachesim
+    from repro_torch.kernels.cache_replay import kernel as k
+    from repro_torch.kernels.cache_replay.ops import decode, partition_by_set
+    hcfg = cachesim.HierarchyConfig()
+    split = dict.fromkeys((
+        "host_stream_build", "copy_to_card", "partition_by_set", "b6_l1",
+        "b6_l2", "copy_back", "host_l2_composition"), 0.0)
+    inputs = {}
+
+    def level(lines, w, geom, tag):
+        m = [time.perf_counter()]
+        lt = torch.from_numpy(lines).to(device)
+        wt = torch.from_numpy(w).to(device)
+        torch.cuda.synchronize()
+        m.append(time.perf_counter())
+        order, offsets, counts = partition_by_set(lt, geom.n_sets)
+        packed = (lt * 2 + wt.to(torch.int64))[order]
+        torch.cuda.synchronize()
+        m.append(time.perf_counter())
+        words = k.cache_replay_sorted(packed, offsets, counts, geom.ways,
+                                      hcfg.write_allocate)
+        torch.cuda.synchronize()
+        m.append(time.perf_counter())
+        out = torch.empty_like(words)
+        out[order] = words
+        result = decode(out.cpu().numpy())
+        m.append(time.perf_counter())
+        for key, a, b in zip(("copy_to_card", "partition_by_set", tag,
+                              "copy_back"), m, m[1:]):
+            split[key] += b - a
+        inputs[tag] = (packed, offsets, counts, geom.ways)
+        return result
+
+    t0 = time.perf_counter()
+    (t, a, w), _ = cachesim.stream_of(program, cfg["sample"])
+    lines = a // hcfg.l1.line_bytes
+    split["host_stream_build"] = time.perf_counter() - t0
+    l1 = level(lines, w, hcfg.l1, "b6_l1")
+    t0 = time.perf_counter()
+    l2 = cachesim.l2_stream(t, lines, w, l1, hcfg)
+    split["host_l2_composition"] += time.perf_counter() - t0
+    hit2 = level(l2[1], l2[2], hcfg.l2, "b6_l2")[0]
+    t0 = time.perf_counter()
+    cachesim.merge_levels(t, lines, w, l1[0], l2, hit2, hcfg)
+    split["host_l2_composition"] += time.perf_counter() - t0
+    return split, inputs
+
+
+def phase_gpu(torch, np, device) -> dict:
+    """The GPU-cache path through its entry points: ``ProfileSession("gpu")``
+    -> analyze -> compose, TinyLlama-1.1B at 22 layers first (the main
+    run), then the 2-layer entry and every mlperf workload; each run held
+    against the golden file, with exactly two B6 launches and no plain or
+    scalar replay."""
+    from repro_torch.core import ProfileSession
+    from repro_torch.workloads import get_workload
+
+    golden = json.loads(GOLDEN_GPU.read_text())
+    keys = [GPU_MAIN] + [k for k in golden["entries"] if k != GPU_MAIN]
+    runs, main = {}, None
+    for key in keys:
+        entry = golden["entries"][key]
+        spec = get_workload(entry["workload"]).with_params(**entry["params"])
+        program, cfg = spec.build("gpu")
+        if cfg != entry["backend_cfg"]:
+            raise AssertionError(f"gpu {key}: run kwargs {cfg} != golden "
+                                 f"{entry['backend_cfg']}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_cache_counts()                 # main path starts here
+        session = ProfileSession("gpu")
+        t0 = time.perf_counter()
+        session.profile(program, **cfg)
+        t1 = time.perf_counter()
+        session.analyze()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        session.compose()
+        t3 = time.perf_counter()
+        counts = cache_counts()              # main path ends here
+        peak = torch.cuda.max_memory_allocated()
+        if counts != {"cache_replay": 2, "plain": 0, "scalar": 0}:
+            raise AssertionError(f"gpu {key}: replays {counts}, expected two "
+                                 "B6 launches and no plain or scalar call")
+        short = check_gpu_entry(np, session, session.report(), entry, key)
+        runs[key] = {
+            "events": {n: int((session.trace.subpartition == i).sum())
+                       for i, n in enumerate(session.trace.names)},
+            "profile_s": t1 - t0, "analyze_s": t2 - t1,
+            "compose_s": t3 - t2, "launches": counts,
+            "max_memory_allocated": peak,
+            "short_lived_fraction_1us": short}
+        if key == GPU_MAIN:
+            main = (program, cfg)
+        del session
+    # the main run's wall split into its steps (after its counts are read)
+    split, inputs = gpu_time_split(torch, np, device, *main)
+    split["analyze"] = runs[GPU_MAIN]["analyze_s"]
+    split["compose"] = runs[GPU_MAIN]["compose_s"]
+    emit("gpu", main=GPU_MAIN, hierarchy="HierarchyConfig() (128 KB / "
+         "8-way L1, 4 MB / 16-way L2, 128 B lines, write-allocate)",
+         runs=runs, main_time_split_s=split,
+         golden="every entry: trace digests, counts, histograms, sum_lt, "
+                "max_lt and capacity fractions equal")
+    return {"launches": runs[GPU_MAIN]["launches"]["cache_replay"],
+            "inputs": inputs}
+
+
+def time_cache_replay(torch, np, device, gpu, check) -> dict:
+    """B6 at the L1 and L2 shapes of the GPU-cache path's main run and on
+    the 1 M-event mixed stream; the plain version at the mixed stream (at
+    the L1 shape its slot loop runs 47 k steps of eager launches)."""
+    from repro_torch.kernels.cache_replay import kernel as k
+
+    def timed(packed, offsets, counts, ways):
+        return statistics.median(cuda_ms(
+            lambda: k.cache_replay_sorted(packed, offsets, counts, ways,
+                                          True), runs=20))
+
+    l1, l2 = gpu["inputs"]["b6_l1"], gpu["inputs"]["b6_l2"]
+    ms_l1, ms_l2 = timed(*l1), timed(*l2)
+    lines, w = (torch.from_numpy(x).to(device) for x in mixed_stream(np))
+    mixed = (*b6_layout(torch, lines, w, 128), 8)
+    ms_mixed = timed(*mixed)
+    plain_ms = statistics.median(cuda_ms(
+        lambda: k.cache_replay_plain(*mixed, True), runs=3))
+
+    def bound(packed, offsets, counts, ways):
+        n, n_sets = packed.shape[0], offsets.shape[0]
+        # 8 B read and 8 B written per access, offsets and counts read once
+        n_bytes = 16 * n + 16 * n_sets
+        # a tag compare and a stamp compare per way, a few for the update
+        n_ops = n * (2 * ways + 8)
+        return n_bytes, n_ops
+
+    n_bytes, n_ops = bound(*l1)
+    row = kernel_row(
+        "cache_replay", B6_SOURCE, B6_REPLACES, gpu["launches"],
+        check["max_abs_err"], ms_l1, plain_ms, n_bytes, n_ops,
+        INT_OPS_PER_S, None,
+        ms_shape={"events": l1[0].shape[0], "n_sets": l1[1].shape[0],
+                  "ways": l1[3], "level": "L1 of the main run"},
+        chain_steps=int(l1[2].max()),
+        ms_l2=ms_l2, l2_events=l2[0].shape[0],
+        l2_chain_steps=int(l2[2].max()),
+        ms_1m_mixed=ms_mixed, mixed_chain_steps=int(mixed[2].max()),
+        plain_ms_shape="the 1 M-event mixed stream (128 sets x 8 ways)",
+        library_call="none: no PyTorch call computes an LRU replay")
+    n_bytes2, n_ops2 = bound(*l2)
+    row["bound_ms_l2"] = max(n_bytes2 / HBM_BYTES_PER_S,
+                             n_ops2 / INT_OPS_PER_S) * 1e3
+    n_bytes3, n_ops3 = bound(*mixed)
+    row["bound_ms_1m_mixed"] = max(n_bytes3 / HBM_BYTES_PER_S,
+                                   n_ops3 / INT_OPS_PER_S) * 1e3
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1553,6 +1907,12 @@ def main() -> int:
     # phases, and its inputs are freed before them
     rows = [time_lifetime_scan(torch, full, check)]
     del full
+    b6_check = phase_cache_replay_check(torch, np, device)
+    gpu = phase_gpu(torch, np, device)
+    # B6 is timed beside its own path; its inputs are freed before serving
+    b6_row = time_cache_replay(torch, np, device, gpu, b6_check)
+    del gpu
+    torch.cuda.empty_cache()
     bwd_check = phase_bwd_check(torch, device)
     phase_golden(torch, np, device)
     serve = phase_serve(torch, device)
@@ -1560,6 +1920,7 @@ def main() -> int:
     train = phase_train(torch, device)
     rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
     rows += time_training_kernels(torch, device, train, bwd_check, rows[1])
+    rows.append(b6_row)
     print(json.dumps({"kernels": rows}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,11 @@ Subcommands:
              ``--csv`` a machine-readable composition report,
              ``--chunk-events`` the streaming frontend, ``--dry-run`` runs
              a tiny built-in workload as a pipeline smoke test)
-  workloads  list the registered workload specs (name, suite, backends)
-  backends   list the registered profiling backends
+  workloads  list the registered workload specs (name, suite, backends):
+             the ``archs``, ``mlperf``, ``polybench`` and ``cnn`` suites
+  backends   list the registered profiling backends: ``systolic``,
+             ``cachesim`` (alias ``gpu``: the L1/L2 cache replay, on the
+             CUDA device) and ``opstream``
   devices    list the registered device families (name, version,
              aliases, parameter schema)
 
@@ -23,6 +26,10 @@ Examples::
       --arch tinyllama_1_1b --dataflow ws --pe 128
   PYTHONPATH=src python -m repro_torch profile --backend systolic \
       --dry-run --device cpu
+  PYTHONPATH=src python -m repro_torch profile --backend gpu \
+      --arch llama-3-8b
+  PYTHONPATH=src python -m repro_torch profile --backend gpu --dry-run \
+      --device cpu
   PYTHONPATH=src python -m repro_torch workloads
   PYTHONPATH=src python -m repro_torch backends
   PYTHONPATH=src python -m repro_torch devices

@@ -16,8 +16,8 @@ Modules:
   devices    - bit-cell mockups: SRAM / Si-GCRAM / Hybrid-GCRAM @ N5
   frontend   - Algorithm 1: refresh / area / active-energy projection
   composer   - heterogeneous memory composition (Table 7)
-
-``pka`` and ``orphans`` of the reference package are not ported yet.
+  orphans    - orphaned-access / write-allocation ablation (Table 8)
+  pka        - Principal Kernel Analysis kernel sampling (Table 4)
 """
 
 from repro_torch.core.devices import (DEFAULT_DEVICES, HYBRID_GCRAM, SI_GCRAM,
@@ -36,6 +36,8 @@ from repro_torch.core.composer import Composition, compose
 from repro_torch.core.trace import Trace, chunk_trace, concat_traces, make_trace
 from repro_torch.core.accumulate import (FoldedLifetimes, TraceAccumulator,
                                          folded_short_lived_fraction)
+from repro_torch.core.orphans import orphaned_access_fraction, policy_ablation
+from repro_torch.core.pka import PKAResult, select_kernels, weighted_estimate
 from repro_torch.core.api import (Backend, ProfileResult, ProfileSession,
                                   available_backends, get_backend,
                                   register_backend, resolve_devices)
@@ -51,5 +53,6 @@ __all__ = [
     "TraceAccumulator", "folded_short_lived_fraction", "Backend",
     "ProfileResult", "ProfileSession",
     "available_backends", "get_backend", "register_backend",
-    "resolve_devices",
+    "resolve_devices", "orphaned_access_fraction", "policy_ablation",
+    "PKAResult", "select_kernels", "weighted_estimate",
 ]

@@ -28,7 +28,8 @@ backend config goes to ``profile()``, ``mode``/``write_allocate``/
 ``devices`` go to ``analyze()``, and ``devices`` to ``compose()`` - device
 sets may be given as ``DeviceModel`` objects or resolved by name.
 
-Host/device split: backends build the trace with numpy on the host;
+Host/device split: backends build the trace with numpy on the host (the
+cache backend replays its streams on the session's ``device``);
 ``analyze()`` moves each subpartition's arrays to the session's torch
 ``device`` once and extracts lifetimes there (``device=None`` is the CUDA
 device and raises without one; tests pass ``device="cpu"``); Algorithm 1
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import inspect
 from typing import Iterable, Iterator, Protocol, Sequence, runtime_checkable
 
 import numpy as np
@@ -93,6 +95,9 @@ _ALIASES: dict[str, str] = {}
 # only the backends this package has; the others are queued in ROADMAP.md
 _BUILTIN_MODULES = {
     "systolic": "repro_torch.backends.systolic",
+    "cachesim": "repro_torch.backends.cachesim",
+    "gpu": "repro_torch.backends.cachesim",
+    "opstream": "repro_torch.backends.opstream",
 }
 
 
@@ -201,12 +206,15 @@ class ProfileSession:
     # pipeline stages
     # ------------------------------------------------------------------
     def profile(self, workload, **cfg) -> "ProfileSession":
-        """Run the backend on a workload; kwargs override session config."""
+        """Run the backend on a workload; kwargs override session config.
+        A backend whose ``run`` takes a ``device`` gets the session's."""
         if self.backend is None:
             raise RuntimeError("no backend bound; construct with "
                                "ProfileSession(backend_name) or use "
                                "from_trace/from_chunks")
         merged = {**self._backend_cfg, **cfg}
+        if "device" in inspect.signature(self.backend.run).parameters:
+            merged.setdefault("device", self.device)
         self._result = self.backend.run(workload, **merged)
         self._report = None
         self._acc = None

@@ -13,6 +13,11 @@ Each kernel directory mirrors its ``repro.kernels`` counterpart:
                     passes (``kernel_bwd.py``), differentiable through
                     ``ops.flash_attention``
   ssd_scan        - Mamba-2's chunked state-space scan
+  cache_replay    - the cache backend's hot loop: set-parallel LRU
+                    write-back replay of one cache level (``ops.py``
+                    partitions the stream by set; there is no ``ref.py``:
+                    the reference's scalar replay in
+                    ``backends/cachesim.py`` is the oracle)
 
 ``_build.py`` compiles the sources with ``nvcc`` at first launch.
 """

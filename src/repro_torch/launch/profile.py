@@ -7,14 +7,16 @@ composition, and emit the report (JSON + console).
 
   PYTHONPATH=src python -m repro_torch profile --arch tinyllama_1_1b \
       --backend systolic --dataflow ws --pe 128
+  PYTHONPATH=src python -m repro_torch profile --arch tinyllama_1_1b \
+      --backend gpu --seq 128
   PYTHONPATH=src python -m repro_torch profile --arch polybench-2mm \
       --backend systolic
-  PYTHONPATH=src python -m repro_torch profile --backend systolic --dry-run \
+  PYTHONPATH=src python -m repro_torch profile --backend gpu --dry-run \
       --device cpu
 
-Lifetime extraction runs on the CUDA device unless ``--device`` names
-another; without a CUDA device and without ``--device cpu`` the command
-fails.
+Lifetime extraction, and the cache backend's set-parallel replay, run on
+the CUDA device unless ``--device`` names another; without a CUDA device
+and without ``--device cpu`` the command fails.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from repro_torch.compose.engine import ENGINES
 from repro_torch.core import ProfileSession
 from repro_torch.devices import get_device_family
 from repro_torch.workloads import get_workload
+from repro_torch.workloads.suites import transformer_program
 
 # The paper device set, resolved through the device-family registry.
 _SRAM_DEV, SI_GCRAM, HYBRID_GCRAM = get_device_family(
@@ -66,13 +69,32 @@ def _write_composition_csv(session: ProfileSession, csv_out: str) -> None:
     print(f"csv -> {csv_out}")
 
 
+def profile_gpu(cfg, seq, out, sample=8, chunk_events=None, device=None):
+    """The cache-hierarchy ("gpu") backend on a config's decoder stack."""
+    session = ProfileSession("gpu", device=device)
+    session.profile(transformer_program(cfg, seq), sample=sample,
+                    chunk_events=chunk_events)
+    session.analyze().compose()
+    return _summarize(session, out)
+
+
+_DRY_SEQ = 16
+
+
 def _dry_run(backend: str, policy: str = "refresh-free",
              engine: str = "numpy", csv_out: str | None = None,
              device=None) -> dict:
     """Minimal end-to-end pipeline smoke: tiny built-in workload."""
     session = ProfileSession(backend, device=device)
     name = session.backend.name
-    session.profile([GemmLayer("dry", 32, 32, 32)], rows=16, cols=16)
+    if name == "systolic":
+        session.profile([GemmLayer("dry", 32, 32, 32)], rows=16, cols=16)
+    else:   # cachesim / opstream
+        def program(sb):
+            from repro_torch.backends.opstream import transformer_ops
+            transformer_ops(sb, d_model=64, n_heads=2, kv_heads=2,
+                            d_ff=128, seq=_DRY_SEQ, n_layers=1)
+        session.profile(program)
     report = session.analyze().compose(policy=policy,
                                        engine=engine).report()
     subs = report["subpartitions"]
@@ -101,6 +123,7 @@ def main(argv=None):
                     help="registered workload name (see `python -m "
                          "repro_torch workloads`)")
     ap.add_argument("--backend", default="systolic",
+                    choices=["systolic", "gpu", "cachesim", "opstream"],
                     help="registered backend (see `python -m repro_torch "
                          "backends`)")
     ap.add_argument("--dataflow", default="ws", choices=["is", "ws", "os"])
@@ -120,8 +143,9 @@ def main(argv=None):
                     help="stream the trace to the frontend in chunks of "
                          "this many events (bounded-memory analysis)")
     ap.add_argument("--device", default=None,
-                    help="torch device of the lifetime extraction "
-                         "(default: the CUDA device; fails without one)")
+                    help="torch device of the lifetime extraction and of "
+                         "the cache replay (default: the CUDA device; fails "
+                         "without one)")
     ap.add_argument("--dry-run", action="store_true",
                     help="tiny built-in workload; pipeline smoke test")
     args = ap.parse_args(argv)
@@ -133,7 +157,8 @@ def main(argv=None):
 
     session = ProfileSession(args.backend, device=args.device)
     workload, cfg = build_workload(args.arch, args.backend, seq=args.seq)
-    cfg.update(rows=args.pe, cols=args.pe, dataflow=args.dataflow)
+    if args.backend == "systolic":
+        cfg.update(rows=args.pe, cols=args.pe, dataflow=args.dataflow)
     if args.chunk_events:
         cfg["chunk_events"] = args.chunk_events
     session.profile(workload, **cfg)

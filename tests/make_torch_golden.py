@@ -14,6 +14,21 @@ default composition's capacity fractions.
 The 22-layer run holds a 33.6 M-event trace; pass ``--layers 2`` to write
 the small entry only (an entry that is not rerun is kept from the file).
 
+``tests/fixtures/torch/golden_gpu_cachesim.json``: the reference's
+cache-hierarchy ("gpu") backend with the default ``HierarchyConfig``
+(128 KB / 8-way L1, 4 MB / 16-way L2, 128 B lines, write-allocate,
+set-parallel replay) on the registry workload ``tinyllama_1_1b`` (seq 128,
+``sample`` 8) at ``n_layers`` 2 and 22 and on every ``mlperf`` workload at
+its registry parameters.  Per subpartition (L1, L2) it records event,
+read, write and hit counts, a SHA-256 of the subpartition's trace in trace
+order (time-sorted: int64 time_cycles, int64 addr, uint8 is_write, uint8
+hit, little-endian, concatenated), the cache-mode lifetime count, orphans,
+the 64-bin histogram of live lifetimes over ``default_edges()`` rounded up
+to integers, exact ``sum_lt`` / ``max_lt``, the default composition's
+capacity fractions and the short-lived access fraction at 1 us retention.
+``--only gpu`` writes this file alone (about a minute; the 22-layer
+entry holds a 10.6 M-event trace).
+
 ``tests/fixtures/torch/golden_zamba2_smoke.npz``: the reference's serving
 loop (``serve.py``: prefill over prompt + generation tokens, then greedy
 decode steps) on the Zamba2 smoke config with ``attn_impl="flash"`` (both
@@ -37,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 from pathlib import Path
 
@@ -67,6 +83,11 @@ ZAMBA2 = {"batch": 2, "prompt_len": 24, "gen": 8, "token_seed": 0}
 OUT_TRAIN = Path(__file__).parent / "fixtures" / "torch" / \
     "golden_tinyllama_train_smoke.npz"
 TRAIN = {"batch": 2, "seq": 64, "steps": 3, "data_seed": 0}
+OUT_GPU = Path(__file__).parent / "fixtures" / "torch" / \
+    "golden_gpu_cachesim.json"
+# entry key -> (registry workload, param overrides)
+GPU_ENTRIES = {"tinyllama_1_1b@2": ("tinyllama_1_1b", {"n_layers": 2}),
+               "tinyllama_1_1b@22": ("tinyllama_1_1b", {"n_layers": 22})}
 
 
 def flatten(tree, prefix=""):
@@ -177,18 +198,97 @@ def golden_entry(n_layers: int) -> dict:
     return entry
 
 
+def integer_edges() -> np.ndarray:
+    """``default_edges()`` rounded up to int64 (+inf -> int64 max): for
+    integer lifetimes ``lt >= e`` iff ``lt >= ceil(e)``."""
+    e = np.ceil(np.asarray(default_edges(), np.float64))
+    out = np.full(len(e), np.iinfo(np.int64).max, np.int64)
+    out[np.isfinite(e)] = e[np.isfinite(e)].astype(np.int64)
+    return out
+
+
+def trace_digest(t_sub) -> str:
+    """SHA-256 of one subpartition's trace, in trace order."""
+    h = hashlib.sha256()
+    for arr, dt in ((t_sub.time_cycles, "<i8"), (t_sub.addr, "<i8"),
+                    (t_sub.is_write, "u1"), (t_sub.hit, "u1")):
+        h.update(np.ascontiguousarray(np.asarray(arr).astype(dt)).tobytes())
+    return h.hexdigest()
+
+
+def gpu_entry(workload: str, params: dict) -> dict:
+    spec = get_workload(workload)
+    if params:
+        spec = spec.with_params(**params)
+    program, cfg = spec.build("gpu")
+    session = ProfileSession("gpu")
+    session.profile(program, **cfg)
+    report = session.analyze().compose().report()
+    trace = session.trace
+    ie = integer_edges()
+    entry = {"workload": workload, "params": params,
+             "backend_cfg": cfg, "n_events": trace.n_events,
+             "subpartitions": {}}
+    for sub, name in enumerate(trace.names):
+        t_sub = trace.select(sub)
+        rep = report["subpartitions"][name]
+        _, raw = session.subpartition_stats(name)
+        valid = np.asarray(raw.valid)
+        orphan = np.asarray(raw.orphan)
+        lt = np.asarray(raw.lifetime_cycles)[valid & ~orphan]
+        bins = np.searchsorted(ie, lt, side="right") - 1
+        n_reads, n_writes = t_sub.counts()
+        entry["subpartitions"][name] = {
+            "n_events": t_sub.n_events,
+            "n_reads": n_reads,
+            "n_writes": n_writes,
+            "n_hits": int(np.asarray(t_sub.hit).sum()),
+            "trace_sha256": trace_digest(t_sub),
+            "n_lifetimes": rep["n_lifetimes"],
+            "unique_addrs": rep["unique_addrs"],
+            "orphans": int((valid & orphan).sum()),
+            "live": int(len(lt)),
+            "hist": np.bincount(bins, minlength=len(ie) - 1).tolist(),
+            "sum_lt": int(lt.sum()),
+            "max_lt": int(lt.max()) if len(lt) else 0,
+            "composition_devices": rep["composition"]["devices"],
+            "capacity_fractions":
+                rep["composition"]["capacity_fractions"],
+            "short_lived_fraction_1us":
+                session.short_lived_fraction(name, 1e-6),
+        }
+    return entry
+
+
+def golden_gpu() -> dict:
+    from repro.workloads import available_workloads
+    entries = dict(GPU_ENTRIES)
+    entries.update((w, (w, {})) for w in available_workloads("mlperf"))
+    golden = {"run": {"backend": "gpu", "hierarchy": "HierarchyConfig()"},
+              "entries": {}}
+    for key, (workload, params) in entries.items():
+        golden["entries"][key] = gpu_entry(workload, params)
+        print(f"gpu {key}: {golden['entries'][key]['n_events']} events")
+    return golden
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 22])
-    ap.add_argument("--only", choices=["tinyllama", "zamba2", "train"])
+    ap.add_argument("--only",
+                    choices=["tinyllama", "zamba2", "train", "gpu"])
     args = ap.parse_args(argv)
+    if args.only in (None, "gpu"):
+        OUT_GPU.parent.mkdir(parents=True, exist_ok=True)
+        OUT_GPU.write_text(json.dumps(golden_gpu(), indent=1) + "\n")
+        print(f"wrote {OUT_GPU}")
     if args.only in (None, "zamba2"):
         np.savez_compressed(OUT_ZAMBA2, **golden_zamba2())
         print(f"wrote {OUT_ZAMBA2}")
     if args.only in (None, "train"):
         np.savez_compressed(OUT_TRAIN, **golden_train())
         print(f"wrote {OUT_TRAIN}")
-    if args.only in ("zamba2", "train"):
+    if args.only in ("zamba2", "train", "gpu"):
         return
     golden = json.loads(OUT.read_text()) if OUT.exists() else {}
     golden["run"] = RUN

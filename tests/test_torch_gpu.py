@@ -7,7 +7,8 @@ where only PyTorch is installed.  Each CUDA kernel is held against its plain
 version on the same inputs with the CPU tests' tolerances (the backward
 kernels in float32 within 1e-5; the bf16 tensor-core kernels within the
 bf16 tolerances and bit-equal from run to run; the lifetime scan exactly,
-on structured streams that put segment edges on the kernel's range edges),
+on structured streams that put segment edges on the kernel's range edges;
+the cache replay bit for bit, on random, skewed and near-2^59 streams),
 and the serving and training paths with the kernels against the JAX
 reference's golden fixtures.
 ``python3 chip_smoke.py`` is the full on-card check.
@@ -411,3 +412,71 @@ def test_lifetime_scan_kernel_matches_plain_on_structured_cases(cuda, case):
     h_p, s_p = kernel.lifetime_scan_plain(t, a, w, e)
     assert torch.equal(hist, h_p) and torch.equal(stats, s_p)
     assert int(stats[4] + stats[5]) == t.shape[0]
+
+
+def _b6_stream(n, n_sets, ways, seed, dev, skew=False, top=False):
+    """Line addresses and write flags on the card for B6's cases."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lines = torch.randint(0, 8 + 3 * n_sets * ways, (n,), generator=g,
+                          device=dev)
+    if skew:                          # every access in set 0
+        lines = (lines % 64) * n_sets
+    if top:                           # line addresses near 2**59 - 1
+        lines = 2 ** 59 - 1 - lines
+    return lines, torch.rand(n, generator=g, device=dev) < 0.35
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("write_allocate", [True, False])
+@pytest.mark.parametrize("n_sets,ways,n,kind", [
+    (1, 2, 3000, "random"), (2, 1, 3000, "random"), (8, 4, 20000, "random"),
+    (128, 8, 200000, "random"), (2048, 16, 200000, "random"),
+    (4096, 16, 300000, "random"), (16, 3, 20000, "random"),
+    (4, 32, 20000, "random"), (128, 8, 20000, "skew"),
+    (64, 4, 20000, "top"), (128, 8, 0, "random")])
+def test_cache_replay_kernel_matches_plain(cuda, n_sets, ways, n, kind,
+                                           write_allocate):
+    """B6 bit-equal to its plain version, and to itself on a second run;
+    one launch per call, none for an empty stream."""
+    from repro_torch.kernels.cache_replay import kernel
+    from repro_torch.kernels.cache_replay.ops import partition_by_set
+    lines, w = _b6_stream(n, n_sets, ways, n_sets + ways, cuda,
+                          skew=kind == "skew", top=kind == "top")
+    order, offsets, counts = partition_by_set(lines, n_sets)
+    packed = (lines * 2 + w.to(torch.int64))[order]
+    before = kernel.cache_replay_sorted.launches
+    got = kernel.cache_replay_sorted(packed, offsets, counts, ways,
+                                     write_allocate)
+    again = kernel.cache_replay_sorted(packed, offsets, counts, ways,
+                                       write_allocate)
+    torch.cuda.synchronize()
+    assert kernel.cache_replay_sorted.launches == before + 2 * (n > 0)
+    want = kernel.cache_replay_plain(packed, offsets, counts, ways,
+                                     write_allocate)
+    assert torch.equal(got, want) and torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_cache_replay_kernel_limits_and_hierarchy(cuda):
+    """More ways than the kernel takes raise (ROADMAP D19); the hierarchy
+    on the card equals the same hierarchy on the CPU, with two launches."""
+    from repro_torch.backends import cachesim
+    from repro_torch.kernels.cache_replay import kernel
+    p = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="up to 32 ways"):
+        kernel.cache_replay_sorted(p, p[:1], p[:1], 33, True)
+    rng = np.random.RandomState(3)
+    n = 100_000
+    t = np.arange(n, dtype=np.int64)
+    a = (rng.randint(0, 1 << 16, n) * 128).astype(np.int64)
+    w = rng.rand(n) < 0.3
+    for wa in (True, False):
+        cfg = cachesim.HierarchyConfig(write_allocate=wa)
+        before = kernel.cache_replay_sorted.launches
+        plain = kernel.cache_replay_plain.calls
+        got = cachesim.simulate_hierarchy(t, a, w, cfg, device=cuda)
+        assert kernel.cache_replay_sorted.launches == before + 2
+        assert kernel.cache_replay_plain.calls == plain
+        want = cachesim.simulate_hierarchy(t, a, w, cfg, device="cpu")
+        for f in ("time_cycles", "addr", "is_write", "hit", "subpartition"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))

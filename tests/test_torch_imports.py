@@ -58,7 +58,13 @@ def test_port_imports_neither_jax_nor_reference():
                    "repro_torch.data.pipeline", "repro_torch.checkpoint",
                    "repro_torch.checkpoint.manager", "repro_torch.runtime",
                    "repro_torch.runtime.fault_tolerance",
-                   "repro_torch.launch.steps", "repro_torch.launch.train"):
+                   "repro_torch.launch.steps", "repro_torch.launch.train",
+                   "repro_torch.backends.opstream",
+                   "repro_torch.backends.cachesim",
+                   "repro_torch.kernels.cache_replay",
+                   "repro_torch.kernels.cache_replay.kernel",
+                   "repro_torch.kernels.cache_replay.ops",
+                   "repro_torch.core.orphans", "repro_torch.core.pka"):
         assert needed in mods
     code = (
         "import importlib, json, sys\n"
@@ -248,6 +254,43 @@ def test_cpu_tensor_takes_plain_version_without_a_compiler(monkeypatch):
             ssd_k.ssd_scan_chunked.launches) == before
 
 
+def test_cache_replay_wrapper_never_falls_back(monkeypatch):
+    """B6: a CPU tensor runs the plain version without asking for a
+    compiler and launches nothing; another device raises; without a
+    compiler the launch raises; the cache backend resolves no device to
+    the card."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cache_replay import kernel
+
+    def no_compiler(*a, **k):
+        raise AssertionError("the CPU path must not build or load a kernel")
+
+    packed = torch.tensor([6, 7, 2, 6], dtype=torch.int64)
+    offsets = torch.tensor([0, 2], dtype=torch.int64)
+    counts = torch.tensor([2, 2], dtype=torch.int64)
+    with monkeypatch.context() as m:
+        m.setattr(_build, "load_library", no_compiler)
+        kernel._launcher.cache_clear()
+        before = kernel.cache_replay_sorted.launches
+        got = kernel.cache_replay_sorted(packed, offsets, counts, 2, True)
+        assert got.tolist() == kernel.cache_replay_plain(
+            packed, offsets, counts, 2, True).tolist() == [2, 1, 2, 2]
+        assert kernel.cache_replay_sorted.launches == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernel.cache_replay_sorted(*(t.to("meta") for t in
+                                     (packed, offsets, counts)), 2, True)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "library_path",
+                        lambda name: Path("/nonexistent") / f"{name}.so")
+    kernel._launcher.cache_clear()
+    _build.load_library.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel._launcher()
+    kernel._launcher.cache_clear()
+
+
 def test_build_module_names_its_library_by_source_hash():
     from repro_torch.kernels import _build
     p = _build.library_path("lifetime_scan")
@@ -258,7 +301,8 @@ def test_build_module_names_its_library_by_source_hash():
                "flash_attention_fwd": ["flash_attention_fwd"],
                "ssd_scan": ["ssd_scan"],
                "flash_attention_bwd": ["flash_attention_bwd_dq",
-                                       "flash_attention_bwd_dkv"]}
+                                       "flash_attention_bwd_dkv"],
+               "cache_replay": ["cache_replay"]}
     for name, fns in entries.items():
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         for fn in fns:

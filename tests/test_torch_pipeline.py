@@ -208,9 +208,9 @@ def test_what_is_not_ported_says_so():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PortSession.campaign(["tinyllama_1_1b"], ["systolic"])
     with pytest.raises(ValueError, match="no lowering for backend"):
-        port_get_workload("tinyllama_1_1b").build("gpu")
+        port_get_workload("tinyllama_1_1b").build("tpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        PortSession("cachesim", device="cpu")
+        PortSession("tpu_graph", device="cpu")
     assert port_cli(["sweep", "--dry-run"]) == 2
     assert port_cli(["campaign"]) == 2
 
