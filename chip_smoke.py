@@ -9,15 +9,26 @@ per source, all at once), holds each kernel against its plain PyTorch
 version on the card, and drives the port's two paths:
 
 * profiling: the profile CLI, then profile -> analyze -> compose at the full
-  width and depth of TinyLlama-1.1B and the ``lifetime_scan`` entry point on
-  the traces the session profiled, checked against the session's own
-  lifetimes and the golden file written from the JAX reference;
+  width and depth of TinyLlama-1.1B (composition by the policy kernels B7,
+  the default engine) and the ``lifetime_scan`` entry point on the traces
+  the session profiled, checked against the session's own lifetimes and the
+  golden file written from the JAX reference;
 * GPU-cache profiling: ``ProfileSession("gpu")`` -> analyze -> compose on
   TinyLlama-1.1B's op stream at full width and depth (22 layers, seq 128,
   line sampling 8) and on every ``mlperf`` workload, the L1 and L2 replays
-  on the card by the ``cache_replay`` kernel (two launches per run), each
-  run held against ``golden_gpu_cachesim.json`` written from the JAX
-  reference (trace digests, counts, histograms, capacity fractions);
+  on the card by the ``cache_replay`` kernel (two launches per run) and the
+  composition by B7 (one launch per subpartition), each run held against
+  ``golden_gpu_cachesim.json`` written from the JAX reference (trace
+  digests, counts, histograms, capacity fractions);
+* the design-space sweep, beside each profiling path and before its
+  session is freed: ``ProfileSession.sweep`` on the analyzed full-depth
+  session, ``engine="torch"`` (the
+  policy kernels B7 on the card) against ``engine="numpy"`` for
+  refresh-free, refresh-aware and bank-quantized on the CLI's default grid
+  (capacity fractions bit-identical, energy within 1e-9), a 73-candidate
+  grid timed, against numpy on the path's 2-layer session, and the sweep
+  CLI's dry run; after the systolic sweep its session is freed and the
+  composition memos are checked to hold nothing of it;
 * serving: ``launch.serve.generate`` on the Zamba2 smoke config against the
   JAX reference's golden logits and tokens, then Zamba2-2.7B at full width
   and depth (54 Mamba-2 blocks, 9 shared-attention applications) with the
@@ -36,14 +47,18 @@ It times each kernel at the shapes its path gives it: the lifetime scan
 right after the profiling path (also on one segment that crosses every
 range of the kernel and on a random trace of the same length), the cache
 replay right after the GPU-cache path (at its L1 and L2 shapes and on a
-1 M-event mixed stream), the others after training.
+1 M-event mixed stream), the policy kernels after the sweep (at the
+73-candidate grid on the full-depth systolic subpartition), the others
+after training.
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
 phase (``device``, ``build`` with each kernel's registers, spills and
 tensor-core instructions in its SASS, ``kernel_check`` per kernel (the
 lifetime scan's on random and structured streams, the cache replay's on
-random, skewed, empty, near-2^59 and mixed streams), ``cli``, ``full``,
-``gpu``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
+random, skewed, empty, near-2^59 and mixed streams, the policy kernels' on
+random grids and address structures), ``cli``, ``full``, ``sweep`` of the
+systolic session, ``gpu``, ``sweep`` of the GPU-cache session, ``golden``,
+``serve``, ``train_golden``, ``train``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
 to a plain version.
@@ -53,14 +68,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -80,7 +98,7 @@ KERNEL_REPLACES = "src/repro/kernels/lifetime_scan/kernel.py:49"
 # subpartition's event count
 LONG_SEGMENT_EVENTS = 11_185_152
 SOURCES = ("lifetime_scan", "flash_attention_fwd", "ssd_scan",
-           "flash_attention_bwd", "cache_replay")
+           "flash_attention_bwd", "cache_replay", "compose_policy")
 FA_SOURCE = "src/repro_torch/csrc/flash_attention_fwd.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention/kernel.py:26"
 SSD_SOURCE = "src/repro_torch/csrc/ssd_scan.cu"
@@ -100,6 +118,27 @@ B6_WAYS = (1, 2, 3, 4, 8, 16, 32)
 B6_SETS = (1, 8, 128, 2048, 4096)
 B6_MAX_SLOTS = 2000
 # the 1 M-event stream of benchmarks/cachesim_bench.py (_mixed_stream)
+# B7 (compose_policy) against its plain version on the card
+B7_ENERGY_RTOL = 1e-12
+B7_SOURCE = "src/repro_torch/csrc/compose_policy.cu"
+B7_RF_REPLACES = "src/repro/compose/executor.py:272"
+B7_RA_REPLACES = "src/repro/compose/executor.py:312"
+B7_UNGROUPED_REPLACES = "src/repro/compose/executor.py:351"
+FP64_FLOPS_PER_S = 34e12         # H100 SXM fp64 outside the tensor cores
+# B7's rows on the kernels line and their launch counts in b7_counts()
+B7_LAUNCH_KEYS = {"compose_policy_rf": "rf",
+                  "compose_policy_ra_grouped": "ra_grouped",
+                  "compose_policy_ra_ungrouped": "ra_ungrouped"}
+# the sweep phase: the CLI's default grid (4 candidates, D <= 4) and the
+# wide grid (73 candidates, D = 4); torch against numpy
+SWEEP_GRID = {"mixes": (0.0, 0.5, 1.0), "retention_scales": (0.5, 1.0, 2.0)}
+SWEEP_WIDE_GRID = {"mixes": (0.0, 0.5, 1.0),
+                   "retention_scales": (0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0,
+                                        32.0),
+                   "area_scales": (0.5, 1.0, 2.0),
+                   "energy_scales": (0.5, 1.0, 2.0)}
+SWEEP_POLICIES = ("refresh-free", "refresh-aware", "bank-quantized")
+SWEEP_ENERGY_RTOL = 1e-9
 MIXED = {"n": 1_000_000, "write_fraction": 0.35, "hot_lines": 2048,
          "sweep_lines": 1 << 20, "seed": 0}
 # the CPU tests' tolerances (atol = rtol), per dtype
@@ -1315,6 +1354,7 @@ def phase_full(torch, np, device, golden) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     k.lifetime_scan_sorted.launches = 0          # main path starts here
+    reset_b7_counts()
 
     workload, cfg = get_workload(run["arch"]).with_params(
         seq=run["seq"], n_layers=FULL_LAYERS).build(run["backend"])
@@ -1370,6 +1410,7 @@ def phase_full(torch, np, device, golden) -> dict:
             biggest = t_sub
 
     launches = k.lifetime_scan_sorted.launches   # main path ends here
+    b7 = b7_counts()
 
     # the entry's time split into its steps, each ended by a synchronize,
     # summed over the subpartitions (after the main path's count is read)
@@ -1407,13 +1448,17 @@ def phase_full(torch, np, device, golden) -> dict:
         raise AssertionError(
             f"lifetime_scan launched {launches} time(s) on the main path, "
             f"expected one per subpartition ({len(trace.names)})")
+    if b7 != {"rf": live_subpartitions(session), "ra_grouped": 0,
+              "ra_ungrouped": 0, "plain": 0}:
+        raise AssertionError(f"full: compose made B7 calls {b7}, expected "
+                             "one refresh-free launch per subpartition")
 
     emit("full", arch=run["arch"], n_layers=FULL_LAYERS, seq=run["seq"],
          pe=run["pe"], dataflow=run["dataflow"], events=trace.n_events,
          subpartition_events={n: int((trace.subpartition == i).sum())
                               for i, n in enumerate(trace.names)},
          host_profile_s=t1 - t0, analyze_s=t2 - t1,
-         device_extract_s=extract_s, host_compose_s=t3 - t2,
+         device_extract_s=extract_s, compose_s=t3 - t2, b7_launches=b7,
          kernel_entry_s=kernel_s, kernel_entry_split_s=split,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          lifetime_scan_launches=launches,
@@ -1424,9 +1469,10 @@ def phase_full(torch, np, device, golden) -> dict:
     a = torch.from_numpy(biggest.addr).to(device)
     w = torch.from_numpy(biggest.is_write).to(device)
     order = sort_by_addr_time(t, a)
-    return {"launches": launches,
+    return {"launches": launches, "b7": b7,
             "sorted": (t[order], a[order], w[order]),
-            "edges": torch.from_numpy(ie).to(device)}
+            "edges": torch.from_numpy(ie).to(device),
+            "session": session}
 
 
 def device_kernels_per_call(torch, fn, calls: int) -> dict:
@@ -1642,6 +1688,539 @@ def phase_cache_replay_check(torch, np, device) -> dict:
     return {"max_abs_err": 0}
 
 
+def b7_trace(torch, np, device, seg_len, seed, boundary_rets=()):
+    """One subpartition's arrays for the policy kernels on the card, built
+    from segment lengths (one address each, in address order): lifetimes
+    lognormal around the gain cells' retentions (some exactly at
+    ``k * ret`` for ``ret`` in ``boundary_rets``), integer reads and bits
+    (256 or 1024, as traces carry), the value-sorted side with its prefix
+    sums and the address side with its per-address sums."""
+    rng = np.random.RandomState(seed)
+    seg_len = np.asarray(seg_len, np.int64)
+    L, A = int(seg_len.sum()), len(seg_len)
+    lt = rng.lognormal(np.log(2e-6), 2.0, L)
+    if boundary_rets:
+        rets = np.asarray(boundary_rets)
+        pick = rng.rand(L) < 0.5
+        k = rng.randint(1, 9, L).astype(np.float64)
+        lt[pick] = (k * rets[rng.randint(0, len(rets), L)])[pick]
+    reads = rng.poisson(3.0, L).astype(np.float64)
+    bits = np.where(rng.rand(L) < 0.8, 256.0, 1024.0)
+    seg = np.repeat(np.arange(A, dtype=np.int32), seg_len)
+    starts = np.concatenate([[0], np.cumsum(seg_len)[:-1]])
+    rb = reads * bits
+    order = np.argsort(lt, kind="stable")
+    pb = np.concatenate([[0.0], np.cumsum(bits[order])])
+    prb = np.concatenate([[0.0], np.cumsum(rb[order])])
+    maxlt = np.sort(np.maximum.reduceat(lt, starts))
+
+    def put(a, dt=torch.float64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    return {"L": L, "A": A,
+            "value": (put(lt[order]), put(pb), put(prb), put(maxlt)),
+            "addr": (put(lt), put(rb), put(bits), put(seg, torch.int32),
+                     put(np.add.reduceat(bits, starts)),
+                     put(np.add.reduceat(rb, starts)))}
+
+
+def b7_candidates(torch, np, device, C, D, seed, pool=None, rets=()):
+    """[C, D] candidates on the card with NaN in every padded slot (a slot
+    the kernels must never read): retentions lognormal around the
+    lifetimes, some infinite (SRAM) or from ``rets``, energies 0.5-20 fJ;
+    ``pool`` (a list of (ret, read_fj, write_fj) devices) draws devices
+    from it instead."""
+    rng = np.random.RandomState(seed)
+    n_dev = rng.randint(1, D + 1, C).astype(np.int32)
+    n_dev[0] = D
+    ret = np.full((C, D), np.nan)
+    rf = np.full((C, D), np.nan)
+    wf = np.full((C, D), np.nan)
+    for c in range(C):
+        for d in range(n_dev[c]):
+            if pool is not None:
+                ret[c, d], rf[c, d], wf[c, d] = pool[rng.randint(len(pool))]
+                continue
+            u = rng.rand()
+            ret[c, d] = (np.inf if u < 0.15 else
+                         rets[rng.randint(len(rets))] if u < 0.4 and rets
+                         else rng.lognormal(np.log(2e-6), 2.0))
+            rf[c, d], wf[c, d] = rng.uniform(0.5, 20.0, 2)
+
+    def put(a, dt=torch.float64):
+        return torch.from_numpy(a).to(device, dt)
+
+    return put(ret), put(rf), put(wf), put(n_dev, torch.int32)
+
+
+def b7_energy(out):
+    """The [C] energy of a policy kernel's output (the refresh-aware
+    kernels return per-block partials)."""
+    return out[0] if out[0].dim() == 1 else out[0].sum(dim=1)
+
+
+def b7_compare(torch, got, want, what) -> float:
+    """A policy kernel's output against its plain version's: counts and
+    picks exactly, energy within B7_ENERGY_RTOL; returns the largest
+    relative energy difference."""
+    if not torch.equal(got[1], want[1]):
+        bad = (got[1] != want[1]).nonzero()[0].tolist()
+        raise AssertionError(
+            f"compose_policy {what}: counts/picks differ from the plain "
+            f"version at {bad}: {got[1][tuple(bad)].item()} vs "
+            f"{want[1][tuple(bad)].item()}")
+    g, w = b7_energy(got), b7_energy(want)
+    err = float(((g - w).abs() / w.abs()).max())
+    if not err <= B7_ENERGY_RTOL:
+        raise AssertionError(f"compose_policy {what}: energy off by {err} "
+                             "relative")
+    return err
+
+
+def b7_check_case(torch, cands, trace, what) -> dict:
+    """Each policy kernel twice (bit-equal) and against its plain version
+    on the card: counts and picks exactly, energy within B7_ENERGY_RTOL."""
+    from repro_torch.kernels.compose_policy import kernel as k
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    worst = 0.0
+    runs = [
+        ("refresh-free", k.policy_rf, k.policy_rf_plain, trace["value"]),
+        ("refresh-aware grouped", k.policy_ra_grouped,
+         k.policy_ra_grouped_plain, trace["addr"]),
+        ("refresh-aware ungrouped", k.policy_ra_ungrouped,
+         k.policy_ra_ungrouped_plain, trace["addr"][:3])]
+    for name, fn, plain, arrays in runs:
+        before = fn.launches
+        got = fn(*cands, *arrays)
+        again = fn(*cands, *arrays)
+        torch.cuda.synchronize()
+        if fn.launches != before + 2:
+            raise AssertionError(f"compose_policy {what} {name}: the wrapper "
+                                 "did not launch once per call")
+        if not same(got, again):
+            raise AssertionError(f"compose_policy {what} {name}: two runs "
+                                 "differ")
+        worst = max(worst, b7_compare(torch, got, plain(*cands, *arrays),
+                                      f"{what} {name}"))
+    return {"case": what, "L": trace["L"], "A": trace["A"],
+            "C": int(cands[0].shape[0]), "D": int(cands[0].shape[1]),
+            "energy_max_rel_err": worst}
+
+
+def phase_compose_policy_check(torch, np, device) -> dict:
+    """B7 against its plain versions on the card: random grids at D 1-16
+    over random address structures, then one address holding every
+    lifetime, a million one-lifetime addresses, addresses crossing many
+    block ranges and segment lengths at the kernel's range and thread
+    sizes, lifetimes exactly at k * ret, SRAM's infinite retention, the
+    SOT-MRAM asymmetric fixture; padded slots hold NaN throughout."""
+    from repro_torch.devices import get_device_family
+    from repro_torch.kernels.compose_policy import kernel as k
+    lib = k._launcher()
+    rng_len = lib.compose_policy_range_lifetimes()
+    thr_len = lib.compose_policy_thread_lifetimes()
+    rng = np.random.RandomState(800)
+    detail = []
+    for i in range(12):
+        mean = (1, 3, 40, 5000)[i % 4]
+        L = int(rng.randint(1, 300_000))
+        seg_len = rng.geometric(1.0 / mean, L)
+        seg_len = seg_len[:np.searchsorted(np.cumsum(seg_len), L) + 1]
+        seg_len[-1] -= seg_len.sum() - L
+        seg_len = seg_len[seg_len > 0]
+        D = int(rng.randint(1, 17)) if i else 16
+        C = int(rng.randint(1, 41))
+        detail.append(b7_check_case(
+            torch, b7_candidates(torch, np, device, C, D, 900 + i),
+            b7_trace(torch, np, device, seg_len, 1000 + i),
+            f"random mean_segment={mean}"))
+    exact = (2.0 ** -20, 3 * 2.0 ** -21, 5 * 2.0 ** -22)
+    fam = (get_device_family("sram-gaincell-default").build()
+           + get_device_family("sot-mram").build()[1:])
+    asym = [(d.retention_s, d.read_fj_per_bit, d.write_fj_per_bit)
+            for d in fam]
+    cross = [1, 700_001, 3, rng_len, rng_len - 1, rng_len + 1, thr_len,
+             thr_len - 1, thr_len + 1, 2 * rng_len - 1, 2 * rng_len + 1,
+             300_000, thr_len * 5 + 1]
+    structured = [
+        ("one_address_2M", [2_000_000], {}, {}),
+        ("million_one_lifetime_addresses", [1] * 1_000_000, {}, {}),
+        ("crossing_many_ranges", cross, {}, {}),
+        ("segments_at_range_and_thread_sizes",
+         [rng_len, thr_len, 1, rng_len, thr_len, thr_len, rng_len + thr_len]
+         * 37, {}, {}),
+        ("lifetimes_at_k_ret", rng.geometric(1 / 30, 6000),
+         {"boundary_rets": exact}, {"rets": exact}),
+        ("sot_mram_asymmetric", rng.geometric(1 / 50, 4000), {},
+         {"pool": asym}),
+    ]
+    for j, (what, seg_len, tkw, ckw) in enumerate(structured):
+        D = 4 if "sot" in what else int((3, 8, 16, 5, 4, 4)[j])
+        detail.append(b7_check_case(
+            torch, b7_candidates(torch, np, device, 24, D, 950 + j, **ckw),
+            b7_trace(torch, np, device, seg_len, 1100 + j, **tkw), what))
+    # SRAM alone, and infinite retention in every slot
+    tr = b7_trace(torch, np, device, rng.geometric(1 / 20, 3000), 1200)
+    inf = torch.full((3, 4), torch.inf, dtype=torch.float64, device=device)
+    en = torch.tensor([[15.0, 1.0, 2.0, 3.0]] * 3, dtype=torch.float64,
+                      device=device)
+    nd = torch.tensor([1, 4, 2], dtype=torch.int32, device=device)
+    detail.append(b7_check_case(torch, (inf, en, en.flip(1), nd), tr,
+                                "sram_infinite_retention"))
+    worst = max(d["energy_max_rel_err"] for d in detail)
+    emit("kernel_check", kernel="compose_policy", cases=len(detail),
+         detail=detail, repeat_runs="bit-equal energy, counts and picks",
+         tolerance=f"counts and picks exact, energy {B7_ENERGY_RTOL} "
+                   "relative", max_rel_err=worst)
+    return {"max_rel_err": worst}
+
+
+def reset_b7_counts():
+    from repro_torch.kernels.compose_policy import kernel as k
+    for fn in (k.policy_rf, k.policy_ra_grouped, k.policy_ra_ungrouped):
+        fn.launches = 0
+    for fn in (k.policy_rf_plain, k.policy_ra_grouped_plain,
+               k.policy_ra_ungrouped_plain):
+        fn.calls = 0
+
+
+def b7_counts() -> dict:
+    from repro_torch.kernels.compose_policy import kernel as k
+    return {"rf": k.policy_rf.launches,
+            "ra_grouped": k.policy_ra_grouped.launches,
+            "ra_ungrouped": k.policy_ra_ungrouped.launches,
+            "plain": k.policy_rf_plain.calls
+            + k.policy_ra_grouped_plain.calls
+            + k.policy_ra_ungrouped_plain.calls}
+
+
+def live_subpartitions(session) -> int:
+    """Subpartitions with lifetimes: each makes one B7 call per compose
+    (an empty one is composed on the host)."""
+    return sum(len(st.lifetimes_s) > 0 for st, _ in session._stats.values())
+
+
+def sweep_contract(torch_pts, numpy_pts, what) -> float:
+    """Capacity fractions bit-identical, energy within SWEEP_ENERGY_RTOL;
+    returns the largest relative energy difference."""
+    import numpy as np
+    if len(torch_pts) != len(numpy_pts):
+        raise AssertionError(f"sweep {what}: point counts differ")
+    worst = 0.0
+    for a, b in zip(torch_pts, numpy_pts):
+        ca, cb = a.composition, b.composition
+        if (a.candidate, a.subpartition) != (b.candidate, b.subpartition) \
+                or not np.array_equal(ca.capacity_fractions,
+                                      cb.capacity_fractions) \
+                or ca.quantization != cb.quantization:
+            raise AssertionError(
+                f"sweep {what} {a.subpartition}/{a.candidate}: capacity "
+                f"{ca.capacity_fractions} != numpy {cb.capacity_fractions}")
+        err = abs(ca.energy_j - cb.energy_j) / abs(cb.energy_j)
+        if not err <= SWEEP_ENERGY_RTOL:
+            raise AssertionError(f"sweep {what} {a.subpartition}/"
+                                 f"{a.candidate}: energy off by {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def timed_sweep(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def two_layer_systolic(torch):
+    """The 2-layer TinyLlama systolic session (the registry's default
+    depth), profiled and analyzed on the card."""
+    from repro_torch.core import ProfileSession
+    from repro_torch.workloads import get_workload
+    run = json.loads(GOLDEN.read_text())["run"]
+    workload, cfg = get_workload(run["arch"]).with_params(
+        seq=run["seq"], n_layers=2).build(run["backend"])
+    session = ProfileSession(run["backend"])
+    session.profile(workload, rows=run["pe"], cols=run["pe"],
+                    dataflow=run["dataflow"], **cfg).analyze()
+    return "systolic@2", session
+
+
+def two_layer_gpu(torch):
+    """The golden file's 2-layer TinyLlama entry of the GPU-cache path."""
+    from repro_torch.core import ProfileSession
+    from repro_torch.workloads import get_workload
+    entry = json.loads(GOLDEN_GPU.read_text())["entries"]["tinyllama_1_1b@2"]
+    program, cfg = get_workload(entry["workload"]).with_params(
+        **entry["params"]).build("gpu")
+    session = ProfileSession("gpu")
+    session.profile(program, **cfg).analyze()
+    return "gpu@2", session
+
+
+def phase_sweep(torch, np, device, name, session, two_layer,
+                cli=False) -> dict:
+    """The design-space sweep on the card through ``ProfileSession.sweep``
+    and ``SweepRunner``, on one path's analyzed full-depth session (the
+    ``full`` or the ``gpu`` phase's): ``engine="torch"`` against
+    ``engine="numpy"`` on the CLI's default grid for refresh-free,
+    refresh-aware and bank-quantized (and refresh-aware without raw
+    lifetimes on one subpartition), each call with B7 launches and no
+    plain-version call; the wide grid timed on the torch engine, against
+    numpy on the path's 2-layer session only; a first call's trace-view
+    build and residence upload timed on their own (the session's compose
+    already holds both in the memos), the warm wide-grid calls split into
+    the kernels, the monolithic baselines and the rest of the host
+    epilogue; with ``cli`` the sweep CLI's dry run."""
+    from repro_torch.__main__ import main as cli_main
+    from repro_torch.compose import engine as ce
+    from repro_torch.compose import executor
+    from repro_torch.sweep import DeviceGrid, SweepRunner
+    grid = DeviceGrid(**SWEEP_GRID)
+    wide = DeviceGrid(**SWEEP_WIDE_GRID)
+
+    # a first call's pieces, built afresh beside the memoized ones
+    view_s = upload_s = 0.0
+    for st, raw in session._stats.values():
+        t0 = time.perf_counter()
+        view = ce._build_trace_view(st, raw, session._clock_hz)
+        t1 = time.perf_counter()
+        res = executor.TraceResidence(view, device)
+        res.value_sorted(view)
+        res.addr_sorted(view)
+        torch.cuda.synchronize()
+        view_s += t1 - t0
+        upload_s += time.perf_counter() - t1
+    del view, res
+    split = {"trace_view_build_s": view_s, "residence_upload_s": upload_s}
+
+    # the main path: the default grid, every policy, then the stats-only
+    # entry (no raw lifetimes) on one subpartition
+    reset_b7_counts()                          # main path starts here
+    runs, worst = {}, 0.0
+    for policy in SWEEP_POLICIES:
+        before = b7_counts()
+        res_t, t_torch = timed_sweep(torch, lambda: session.sweep(
+            grid, policy=policy, engine="torch", attach=False))
+        after = b7_counts()
+        if after["plain"] != before["plain"] or sum(
+                after[key] - before[key] for key in
+                ("rf", "ra_grouped", "ra_ungrouped")) == 0:
+            raise AssertionError(f"sweep {name} {policy}: B7 launches "
+                                 f"{before} -> {after}")
+        res_n, t_numpy = timed_sweep(torch, lambda: session.sweep(
+            grid, policy=policy, engine="numpy", attach=False))
+        worst = max(worst, sweep_contract(res_t.points, res_n.points,
+                                          f"{name} {policy}"))
+        runs[policy] = {"torch_s": t_torch, "numpy_s": t_numpy,
+                        "points": len(res_t)}
+    sub, (st, _) = next(iter(session._stats.items()))
+    pts_t, t_torch = timed_sweep(torch, lambda: SweepRunner(
+        grid, policy="refresh-aware", engine="torch").run_stats(
+            st, None, clock_hz=session._clock_hz))
+    pts_n, t_numpy = timed_sweep(torch, lambda: SweepRunner(
+        grid, policy="refresh-aware", engine="numpy").run_stats(
+            st, None, clock_hz=session._clock_hz))
+    worst = max(worst, sweep_contract(pts_t, pts_n,
+                                      f"{name} {sub} without raw"))
+    runs[f"refresh-aware without raw ({sub})"] = {
+        "torch_s": t_torch, "numpy_s": t_numpy, "points": len(pts_t)}
+    launches = b7_counts()                     # main path ends here
+    if launches["plain"] or not all(launches[key] for key in
+                                    ("rf", "ra_grouped", "ra_ungrouped")):
+        raise AssertionError(f"sweep {name} main path: B7 counts "
+                             f"{launches}")
+
+    # the wide grid on the torch engine; its warm wall split into the
+    # kernels (CUDA events over the same wrapper calls), the monolithic
+    # baselines (the engine's analyze_energy calls, timed in place) and
+    # the rest of the host epilogue
+    wide_runs, mono = {}, {"s": 0.0, "calls": 0}
+    analyze_energy = ce.analyze_energy
+
+    def timed_analyze_energy(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return analyze_energy(*args, **kwargs)
+        finally:
+            mono["s"] += time.perf_counter() - t0
+            mono["calls"] += 1
+
+    ce.analyze_energy = timed_analyze_energy
+    try:
+        for policy in ("refresh-free", "refresh-aware"):
+            res_w, t_w = timed_sweep(torch, lambda: session.sweep(
+                wide, policy=policy, engine="torch", attach=False))
+            wide_runs[f"{name} {policy}"] = {"torch_s": t_w,
+                                             "points": len(res_w)}
+    finally:
+        ce.analyze_energy = analyze_energy
+    kernel_s = sum(b7_call_ms(torch, np, session, wide, device, policy)
+                   for policy in ("refresh-free", "refresh-aware")) / 1e3
+    walls = sum(v["torch_s"] for v in wide_runs.values())
+    split.update(wide_grid_warm_s=walls, wide_grid_kernels_s=kernel_s,
+                 wide_grid_monolithic_baselines_s=mono["s"],
+                 wide_grid_monolithic_baseline_calls=mono["calls"],
+                 wide_grid_rest_of_epilogue_s=walls - kernel_s - mono["s"])
+    name2, session2 = two_layer(torch)
+    for policy in ("refresh-free", "refresh-aware"):
+        res_t, t_torch = timed_sweep(torch, lambda: session2.sweep(
+            wide, policy=policy, engine="torch", attach=False))
+        res_n, t_numpy = timed_sweep(torch, lambda: session2.sweep(
+            wide, policy=policy, engine="numpy", attach=False))
+        worst = max(worst, sweep_contract(
+            res_t.points, res_n.points, f"wide {name2} {policy}"))
+        wide_runs[f"{name2} {policy}"] = {
+            "torch_s": t_torch, "numpy_s": t_numpy, "points": len(res_t)}
+    del session2
+
+    fields = {}
+    if cli:                                    # the CLI's dry run
+        before = b7_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["sweep", "--backend", "systolic", "--dry-run",
+                           "--engine", "torch"])
+        after = b7_counts()
+        if rc != 0 or "sweep ok:" not in buf.getvalue() or \
+                after["rf"] == before["rf"] or \
+                after["plain"] != before["plain"]:
+            raise AssertionError(f"sweep --dry-run --engine torch: rc {rc}, "
+                                 f"{buf.getvalue()[-300:]}")
+        fields["cli"] = buf.getvalue().strip().splitlines()[-1]
+    emit("sweep", session=name,
+         lifetimes={sub: int(st.lifetimes_s.shape[0])
+                    for sub, (st, _) in session._stats.items()},
+         grid={**SWEEP_GRID, "candidates": len(grid)},
+         wide_grid={**SWEEP_WIDE_GRID, "candidates": len(wide)}, runs=runs,
+         wide_runs=wide_runs, time_split_s=split, launches=launches,
+         energy_max_rel_err=worst,
+         contract=f"capacity fractions and bank quantization bit-identical "
+                  f"to engine=numpy, energy within {SWEEP_ENERGY_RTOL}",
+         **fields)
+    return {"launches": launches, "max_rel_err": worst}
+
+
+def b7_inputs_of(np, session, grid, device, policy, sub=None):
+    """The kernel inputs one ``evaluate`` call of ``session``'s
+    subpartition ``sub`` (the first by default) hands to B7."""
+    from repro_torch.compose import engine as ce
+    from repro_torch.compose import executor
+    from repro_torch.kernels.compose_policy import ops
+    name = sub or next(iter(session._stats))
+    st, raw = session._stats[name]
+    devs = [sorted(c.devices, key=ce._device_sort_key)
+            for c in grid.candidates()]
+    n_dev = np.array([len(d) for d in devs])
+    d_max = int(n_dev.max())
+    mats = np.full((3, len(devs), d_max), np.nan)
+    for c, ds in enumerate(devs):
+        mats[0, c, :len(ds)] = [d.retention_at(st.write_freq_hz)
+                                for d in ds]
+        mats[1, c, :len(ds)] = [d.read_fj_per_bit for d in ds]
+        mats[2, c, :len(ds)] = [d.write_fj_per_bit for d in ds]
+    pad = np.arange(d_max)[None, :] >= n_dev[:, None]
+    cands = ops.candidate_tensors(*mats, pad, device)
+    view = ce.sorted_trace_view(st, raw, session._clock_hz)
+    res = executor._residence_for(view, device)
+    if policy == "refresh-free":
+        return cands, res.value_sorted(view)
+    if policy == "refresh-aware":
+        return cands, res.addr_sorted(view)
+    return cands, res.original(st.lifetimes_s, st.accesses_per_lifetime
+                               - 1.0, st.lifetime_bits)
+
+
+def b7_call_ms(torch, np, session, grid, device, policy) -> float:
+    """Median ms of the kernel calls one sweep of ``session`` makes under
+    ``policy``, summed over its subpartitions."""
+    from repro_torch.kernels.compose_policy import kernel as k
+    fn = k.policy_rf if policy == "refresh-free" else k.policy_ra_grouped
+    total = 0.0
+    for sub in session._stats:
+        cands, arrays = b7_inputs_of(np, session, grid, device, policy, sub)
+        total += statistics.median(cuda_ms(lambda: fn(*cands, *arrays),
+                                           runs=5))
+    return total
+
+
+def time_compose_policy(torch, np, device, session, check) -> list:
+    """B7's rows: each kernel at the wide grid (73 candidates, D = 4) on
+    the full-depth systolic subpartition (5,592,576 lifetimes), its output
+    there held against the plain version's; their ``launches`` are filled
+    in from the compose and sweep phases' main runs."""
+    from repro_torch.kernels.compose_policy import kernel as k
+    from repro_torch.sweep import DeviceGrid
+    wide_grid = DeviceGrid(**SWEEP_WIDE_GRID)
+    rows = []
+    specs = (("compose_policy_rf", "refresh-free", k.policy_rf,
+              k.policy_rf_plain, B7_RF_REPLACES),
+             ("compose_policy_ra_grouped", "refresh-aware",
+              k.policy_ra_grouped, k.policy_ra_grouped_plain,
+              B7_RA_REPLACES),
+             ("compose_policy_ra_ungrouped", "ungrouped",
+              k.policy_ra_ungrouped, k.policy_ra_ungrouped_plain,
+              B7_UNGROUPED_REPLACES))
+    for name, policy, fn, plain, replaces in specs:
+        cands, arrays = b7_inputs_of(np, session, wide_grid, device, policy)
+        C, D = cands[0].shape
+        outs = {}
+        ms = statistics.median(cuda_ms(lambda: outs.__setitem__(
+            "kernel", fn(*cands, *arrays)), runs=10))
+        plain_ms = statistics.median(cuda_ms(lambda: outs.__setitem__(
+            "plain", plain(*cands, *arrays)), runs=3))
+        err_here = b7_compare(torch, outs["kernel"], outs["plain"],
+                              f"{name} at the wide grid")
+        L = int(arrays[0].shape[0])
+        real = int(cands[3].sum())             # real (candidate, device)
+        if policy == "refresh-free":
+            # per real slot: two binary searches over the lifetimes and
+            # the addresses, four prefix reads; the candidates in, the
+            # energies and counts out
+            A = int(arrays[3].shape[0])
+            probes = math.ceil(math.log2(L + 1)) + math.ceil(
+                math.log2(A + 1))
+            n_bytes = real * (3 * 8 + 8 * (probes + 4)) + C * 4 + C * 8 \
+                + C * D * 8
+            n_ops = real * (2 * probes + 12)
+            shape = {"lifetimes": L, "addresses": A}
+        else:
+            # each lifetime's lt, read bits, bits (and segment id) once, the
+            # candidates once, the outputs once; about 8 fp64 operations
+            # per real (candidate, device, lifetime)
+            n_bytes = L * 24 + real * 24 + C * 4 + C * D * 8
+            if policy == "refresh-aware":
+                A = int(arrays[4].shape[0])
+                n_bytes += L * 4 + A * 16
+                shape = {"lifetimes": L, "addresses": A}
+            else:
+                n_bytes += C * L
+                shape = {"lifetimes": L}
+            n_ops = 8 * real * L
+        rows.append(kernel_row(
+            name, B7_SOURCE, replaces, None,
+            check["max_rel_err"], ms, plain_ms, n_bytes, n_ops,
+            FP64_FLOPS_PER_S, None,
+            ms_shape={"candidates": C, "device_slots": D,
+                      "real_slots": real, **shape,
+                      "at": "the wide grid on the full-depth systolic "
+                            "subpartition"},
+            max_abs_err_is="largest relative energy difference to the "
+                           "plain version in kernel_check (counts and "
+                           "picks exact)",
+            max_rel_err_at_ms_shape=err_here,
+            launches_are="kernel calls in the main runs of the two "
+                         "full-depth compose steps (one a subpartition) "
+                         "and the two sweep phases (3 policies on the "
+                         "default grid on each full-depth session, plus "
+                         "one stats-only sweep each)",
+            library_call="none: no single PyTorch call computes it"))
+    return rows
+
+
 def reset_cache_counts():
     from repro_torch.backends import cachesim
     from repro_torch.kernels.cache_replay import kernel as k
@@ -1786,6 +2365,7 @@ def phase_gpu(torch, np, device) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_cache_counts()                 # main path starts here
+        reset_b7_counts()
         session = ProfileSession("gpu")
         t0 = time.perf_counter()
         session.profile(program, **cfg)
@@ -1796,20 +2376,27 @@ def phase_gpu(torch, np, device) -> dict:
         session.compose()
         t3 = time.perf_counter()
         counts = cache_counts()              # main path ends here
+        b7 = b7_counts()
         peak = torch.cuda.max_memory_allocated()
         if counts != {"cache_replay": 2, "plain": 0, "scalar": 0}:
             raise AssertionError(f"gpu {key}: replays {counts}, expected two "
                                  "B6 launches and no plain or scalar call")
+        if b7 != {"rf": live_subpartitions(session), "ra_grouped": 0,
+                  "ra_ungrouped": 0, "plain": 0}:
+            raise AssertionError(f"gpu {key}: compose made B7 calls {b7}, "
+                                 "expected one refresh-free launch per "
+                                 "subpartition")
         short = check_gpu_entry(np, session, session.report(), entry, key)
         runs[key] = {
             "events": {n: int((session.trace.subpartition == i).sum())
                        for i, n in enumerate(session.trace.names)},
             "profile_s": t1 - t0, "analyze_s": t2 - t1,
-            "compose_s": t3 - t2, "launches": counts,
+            "compose_s": t3 - t2, "launches": counts, "b7_launches": b7,
             "max_memory_allocated": peak,
             "short_lived_fraction_1us": short}
         if key == GPU_MAIN:
             main = (program, cfg)
+            main_session = session
         del session
     # the main run's wall split into its steps (after its counts are read)
     split, inputs = gpu_time_split(torch, np, device, *main)
@@ -1821,7 +2408,8 @@ def phase_gpu(torch, np, device) -> dict:
          golden="every entry: trace digests, counts, histograms, sum_lt, "
                 "max_lt and capacity fractions equal")
     return {"launches": runs[GPU_MAIN]["launches"]["cache_replay"],
-            "inputs": inputs}
+            "b7": runs[GPU_MAIN]["b7_launches"],
+            "inputs": inputs, "session": main_session}
 
 
 def time_cache_replay(torch, np, device, gpu, check) -> dict:
@@ -1873,6 +2461,43 @@ def time_cache_replay(torch, np, device, gpu, check) -> dict:
     return row
 
 
+def host_rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def memo_state(torch) -> dict:
+    """Host RSS, device memory in use, and the sizes of the composition
+    memos (address groups, trace views, device residences)."""
+    from repro_torch.compose import engine as ce
+    from repro_torch.compose import executor
+    return {"host_rss": host_rss_bytes(),
+            "device_allocated": torch.cuda.memory_allocated(),
+            "groups": len(ce._groups_memo), "views": len(ce._view_memo),
+            "residences": len(executor._residence_memo)}
+
+
+def check_session_freed(torch, refs, before) -> None:
+    """After the last reference to a session is dropped: collect, and check
+    that its stats and raw lifetimes (``refs``, weak) are gone and that no
+    composition memo holds an entry whose owner is dead."""
+    from repro_torch.compose import engine as ce
+    from repro_torch.compose import executor
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = memo_state(torch)
+    alive = sum(r() is not None for r in refs)
+    stale = [name for name, memo in (("groups", ce._groups_memo),
+                                     ("views", ce._view_memo),
+                                     ("residences", executor._residence_memo))
+             for entry in list(memo.values()) if entry[0]() is None]
+    emit("free_systolic_session", before=before, after_collect=after,
+         stats_and_raw_alive=alive, stale_memo_entries=stale)
+    if alive or stale:
+        raise AssertionError(f"the freed session's stats/raw alive: {alive}, "
+                             f"stale memo entries: {stale}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1906,13 +2531,34 @@ def main() -> int:
     # K1 is timed beside its own path, before the serving and training
     # phases, and its inputs are freed before them
     rows = [time_lifetime_scan(torch, full, check)]
+    sys_session = full["session"]
+    composes = [full["b7"]]
     del full
+    # the systolic path's sweep beside its session (B7 held against its
+    # plain version first, timed after), freed before the GPU-cache path
+    b7_check = phase_compose_policy_check(torch, np, device)
+    sweeps = [phase_sweep(torch, np, device, f"systolic@{FULL_LAYERS}",
+                          sys_session, two_layer_systolic, cli=True)]
+    b7_rows = time_compose_policy(torch, np, device, sys_session, b7_check)
+    refs = [weakref.ref(x) for pair in sys_session._stats.values()
+            for x in pair if x is not None]
+    before = memo_state(torch)
+    del sys_session
+    check_session_freed(torch, refs, before)
     b6_check = phase_cache_replay_check(torch, np, device)
     gpu = phase_gpu(torch, np, device)
-    # B6 is timed beside its own path; its inputs are freed before serving
+    # B6 is timed beside its own path, the GPU-cache path's sweep runs on
+    # its session; both are freed before serving
     b6_row = time_cache_replay(torch, np, device, gpu, b6_check)
+    sweeps.append(phase_sweep(torch, np, device, f"gpu@{FULL_LAYERS}",
+                              gpu["session"], two_layer_gpu))
+    composes.append(gpu["b7"])
     del gpu
     torch.cuda.empty_cache()
+    for row in b7_rows:
+        key = B7_LAUNCH_KEYS[row["name"]]
+        row["launches"] = sum(run[key] for run in composes) + sum(
+            sw["launches"][key] for sw in sweeps)
     bwd_check = phase_bwd_check(torch, device)
     phase_golden(torch, np, device)
     serve = phase_serve(torch, device)
@@ -1921,6 +2567,7 @@ def main() -> int:
     rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
     rows += time_training_kernels(torch, device, train, bwd_check, rows[1])
     rows.append(b6_row)
+    rows += b7_rows
     print(json.dumps({"kernels": rows}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,16 @@ Subcommands:
   backends   list the registered profiling backends: ``systolic``,
              ``cachesim`` (alias ``gpu``: the L1/L2 cache replay, on the
              CUDA device) and ``opstream``
+  sweep      profile a workload, evaluate a grid of candidate device sets
+             over every subpartition and print the Pareto frontiers (see
+             ``repro_torch.launch.sweep``: ``--engine torch`` runs the
+             policy kernels on the CUDA device, ``--dry-run`` a tiny
+             built-in workload)
   devices    list the registered device families (name, version,
              aliases, parameter schema)
 
-``sweep``, ``campaign``, ``worker`` and ``check`` of the reference CLI are
-not ported yet; they say so and return 2.
+``campaign``, ``worker`` and ``check`` of the reference CLI are not ported
+yet; they say so and return 2.
 
 Examples::
 
@@ -30,6 +35,10 @@ Examples::
       --arch llama-3-8b
   PYTHONPATH=src python -m repro_torch profile --backend gpu --dry-run \
       --device cpu
+  PYTHONPATH=src python -m repro_torch sweep --backend systolic --dry-run \
+      --engine torch
+  PYTHONPATH=src python -m repro_torch sweep --dry-run --engine torch \
+      --device cpu
   PYTHONPATH=src python -m repro_torch workloads
   PYTHONPATH=src python -m repro_torch backends
   PYTHONPATH=src python -m repro_torch devices
@@ -40,7 +49,7 @@ from __future__ import annotations
 import sys
 
 _USAGE = __doc__
-_NOT_PORTED = ("sweep", "campaign", "worker", "check")
+_NOT_PORTED = ("campaign", "worker", "check")
 
 
 def main(argv=None) -> int:
@@ -52,6 +61,10 @@ def main(argv=None) -> int:
     if cmd == "profile":
         from repro_torch.launch.profile import main as profile_main
         profile_main(rest)
+        return 0
+    if cmd == "sweep":
+        from repro_torch.launch.sweep import main as sweep_main
+        sweep_main(rest)
         return 0
     if cmd in _NOT_PORTED:
         print(f"`{cmd}` is not ported to repro_torch yet (see ROADMAP.md, "

@@ -10,9 +10,14 @@ behind an :class:`AssignmentPolicy` abstraction:
               (power-of-two bank capacity snapping atop either), plus
               ``get_policy`` spec parsing
   engine    - ``evaluate``: one policy kernel over a single device set
-              *or* a whole grid of candidates via the same NumPy
-              broadcast; ``compose`` (single-candidate wrapper);
-              ``composition_csv_rows``
+              *or* a whole grid of candidates via the fused torch
+              executor (``engine="torch"``, the default) or the NumPy
+              broadcast oracle (``engine="numpy"``); ``compose``
+              (single-candidate wrapper); ``composition_csv_rows``;
+              ``sorted_trace_view``
+  executor  - ``run_batch``: the whole grid through the hand-written
+              policy kernels against device-resident trace arrays
+  torch_engine - ``run_chunk``: the same kernels for one ``PolicyBatch``
   types     - the ``Composition`` result schema
 
 ``repro_torch.core.composer.compose()`` and ``repro_torch.sweep.SweepRunner`` are
@@ -31,7 +36,7 @@ from repro_torch.compose.policies import (AddressGroups, AssignmentPolicy,
 from repro_torch.compose.types import Composition
 
 _ENGINE_EXPORTS = ("evaluate", "compose", "composition_csv_rows",
-                   "address_groups", "ENGINES")
+                   "address_groups", "sorted_trace_view", "ENGINES")
 
 __all__ = [
     "AddressGroups", "AssignmentPolicy", "BankQuantizedPolicy",

@@ -34,15 +34,23 @@ results, and float accumulation order are preserved exactly
 seed implementation, and ``tests/test_torch_pipeline.py`` holds this
 engine against the reference's).
 
-Engines: ``engine="numpy"`` runs the policy kernels and reductions here
-in NumPy and carries the bit-for-bit guarantee above.  It is the only
-engine this package has so far; the accelerated engine of the reference
-(``engine="jax"``) has no counterpart yet, and any other value raises a
-``ValueError`` naming :data:`ENGINES`.
+Engines: ``evaluate(..., engine="torch")`` (default; the reference's
+``engine="jax"``) hands the *whole* candidate batch to the fused executor
+in :mod:`repro_torch.compose.executor` (imported lazily), which keeps the
+trace state resident on the torch device across calls (see
+:func:`sorted_trace_view`) and runs the hand-written policy kernels of
+``kernels/compose_policy`` there.  ``device=`` names that torch device
+(``None``: the CUDA device, raising without one).  ``engine="numpy"`` is
+the oracle: it runs the policy kernels and reductions here in NumPy,
+carries the bit-for-bit guarantee above and ignores ``device``.  The two
+agree bit-identically on capacity and to ~1e-9 relative energy
+(``tests/test_torch_compose_engine.py``, ``tests/test_torch_executor.py``).
+Any other engine raises a ``ValueError`` naming :data:`ENGINES`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import weakref
 from typing import Mapping, Sequence
@@ -51,12 +59,13 @@ import numpy as np
 
 from repro_torch.compose.policies import (AddressGroups, AssignmentPolicy,
                                           PolicyBatch, get_policy)
+from repro_torch.compose.torch_engine import _segment_ids
 from repro_torch.compose.types import Composition
 from repro_torch.core.devices import DeviceModel
 from repro_torch.core.frontend import SubpartitionStats, analyze_energy
 
 #: evaluation engines that exist
-ENGINES = ("numpy",)
+ENGINES = ("numpy", "torch")
 
 # Cap on one candidate-chunk broadcast: chunk x devices x lifetimes
 # elements at the policy's item size.  256 MB keeps the matrices
@@ -119,6 +128,107 @@ def _per_address_max_lifetime_s(raw, clock_hz: float) -> np.ndarray:
     """Per-address maximum lifetime in seconds (legacy helper; the
     grouping now lives in :func:`address_groups`)."""
     return address_groups(raw, clock_hz).max_lt_s
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceView:
+    """Host-side sorted twins of one subpartition's trace arrays — every
+    permutation and prefix sum the engines need, computed once per
+    ``(stats, raw)`` pair (see :func:`sorted_trace_view`).
+
+    Value-sorted side (refresh-free interval arithmetic): ``lt_sorted``
+    plus ``[n_lt + 1]`` prefix sums of bits and read·bits in lifetime
+    order, accumulated in ``np.longdouble`` and rounded once to float64
+    so any prefix *difference* matches a direct float64 sum to ~1e-16
+    relative.  Address-sorted side (refresh-aware segment reductions):
+    the lifetime arrays gathered through ``groups.order`` with dense
+    segment ids, and each address's max lifetime value-sorted for the
+    capacity searchsorted.  Address fields are ``None`` when built with
+    ``raw=None``.
+    """
+    n_lt: int
+    n_addr: int
+    lt_sorted: np.ndarray
+    prefix_bits: np.ndarray
+    prefix_read_bits: np.ndarray
+    maxlt_sorted: np.ndarray | None
+    lt_addr: np.ndarray | None
+    reads_addr: np.ndarray | None
+    bits_addr: np.ndarray | None
+    seg: np.ndarray | None
+
+
+def _view_from_arrays(lt: np.ndarray, reads: np.ndarray, bits: np.ndarray,
+                      groups: AddressGroups | None) -> TraceView:
+    """The :class:`TraceView` of per-lifetime arrays and their address
+    grouping (``None``: no address side)."""
+    n_lt = len(lt)
+    order = np.argsort(lt, kind="stable")
+
+    def prefix(a: np.ndarray) -> np.ndarray:
+        p = np.zeros(n_lt + 1, np.longdouble)
+        np.cumsum(a[order].astype(np.longdouble), out=p[1:])
+        return p.astype(np.float64)
+
+    maxlt_sorted = lt_addr = reads_addr = bits_addr = seg = None
+    n_addr = 0
+    if groups is not None:
+        n_addr = len(groups.max_lt_s)
+        maxlt_sorted = np.sort(groups.max_lt_s, kind="stable")
+        g_order = np.asarray(groups.order)
+        lt_addr = lt[g_order]
+        reads_addr = reads[g_order]
+        bits_addr = bits[g_order]
+        seg = _segment_ids(np.asarray(groups.starts), n_lt)
+    return TraceView(
+        n_lt=n_lt, n_addr=n_addr, lt_sorted=lt[order],
+        prefix_bits=prefix(bits), prefix_read_bits=prefix(reads * bits),
+        maxlt_sorted=maxlt_sorted, lt_addr=lt_addr,
+        reads_addr=reads_addr, bits_addr=bits_addr, seg=seg)
+
+
+def _build_trace_view(stats: SubpartitionStats, raw,
+                      clock_hz: float) -> TraceView:
+    """The one host pre-sort per ``(stats, raw)`` pair (spied on by
+    ``tests/test_torch_executor.py`` to prove the sweep never re-sorts)."""
+    groups = address_groups(raw, clock_hz) if raw is not None else None
+    return _view_from_arrays(stats.lifetimes_s,
+                             stats.accesses_per_lifetime - 1.0,
+                             stats.lifetime_bits, groups)
+
+
+# Memo for sorted_trace_view: (id(stats), id(raw)) -> (weakref(stats),
+# weakref(raw) | None, clock_hz, view) — the trace-view twin of
+# _groups_memo, extending the numpy-side memoization to everything the
+# torch executor keeps resident on its device.  Keyed by identity only:
+# the view is a pure function of the trace and the clock, so ``engine``,
+# policy and device deliberately stay out of the key — every engine
+# shares one view.
+_view_memo: dict = {}
+
+
+def sorted_trace_view(stats: SubpartitionStats, raw,
+                      clock_hz: float = 1.0e9) -> TraceView:
+    """Memoized :class:`TraceView` for a ``(stats, raw)`` pair: the
+    host pre-sort is done once per subpartition and reused across every
+    candidate batch, policy, geometry, and engine.  Weakrefs guard id
+    reuse and evict the entry (and with it the executor's device-
+    resident twin) when the stats object is collected."""
+    key = (id(stats), id(raw))
+    hit = _view_memo.get(key)
+    if (hit is not None and hit[0]() is stats
+            and (hit[1] is None or hit[1]() is raw)
+            and hit[2] == clock_hz):
+        return hit[3]
+    view = _build_trace_view(stats, raw, clock_hz)
+    try:
+        cb = lambda _, k=key: _view_memo.pop(k, None)  # noqa: E731
+        sref = weakref.ref(stats, cb)
+        rref = weakref.ref(raw, cb) if raw is not None else None
+        _view_memo[key] = (sref, rref, clock_hz, view)
+    except TypeError:
+        pass          # stats/raw not weakref-able: skip the memo
+    return view
 
 
 def _area_accounting(
@@ -229,7 +339,8 @@ def evaluate(
     *,
     clock_hz: float = 1.0e9,
     policy: AssignmentPolicy | str = "refresh-free",
-    engine: str = "numpy",
+    engine: str = "torch",
+    device=None,
 ) -> list:
     """One :class:`Composition` per candidate device set, all evaluated
     through the same batched policy kernel.
@@ -239,12 +350,23 @@ def evaluate(
     end-to-end (policy broadcast and reductions alike), so peak memory
     is bounded however large the grid.
 
-    ``engine`` selects the chunk executor; see :data:`ENGINES`.
+    ``engine`` selects the executor (see :data:`ENGINES`): ``"torch"``
+    (default; the fused executor on ``device``, ~1e-9-relative energy,
+    see :mod:`repro_torch.compose.executor`) or ``"numpy"`` (the oracle,
+    bit-for-bit seed contract).
     """
     if engine not in ENGINES:
         raise ValueError(
             f"engine must be one of {ENGINES}, got {engine!r}")
     pol = get_policy(policy)
+    if engine == "torch":
+        from repro_torch.compose import torch_engine
+        from repro_torch.device import resolve_device
+        if not torch_engine.supports(pol):
+            raise ValueError(
+                f"engine='torch' has no fused kernel for policy "
+                f"{pol.name!r}; use engine='numpy'")
+        device = resolve_device(device)
     sets = [tuple(ds) for ds in device_sets]
     if not sets:
         return []
@@ -291,21 +413,42 @@ def evaluate(
     pad = np.arange(d_max)[None, :] >= n_dev[:, None]
     fallback = (n_dev - 1)[:, None]
 
+    e_all = f_all = None
+    if engine == "torch":
+        # The fused executor takes the whole grid at once, reuses the
+        # memoized trace view's device-resident twin, and returns the
+        # full [C] energy / [C, D] fraction arrays — the chunk loop
+        # below only runs the host epilogue.
+        from repro_torch.compose import executor
+        view = sorted_trace_view(stats, raw, clock_hz)
+        full = PolicyBatch(
+            devs=tuple(sorted_devs), ret_s=ret, read_fj=read_fj,
+            write_fj=write_fj, pad=pad, fallback=fallback,
+            lt_s=lt, reads=reads, bits=bits, groups=groups)
+        e_all, f_all = executor.run_batch(pol, full, view, device)
+
     chunk = max(1, _MAX_BROADCAST_BYTES
                 // max(1, d_max * len(lt) * pol.broadcast_itemsize))
     out = []
     for lo in range(0, len(sets), chunk):
         hi = min(lo + chunk, len(sets))
-        batch = PolicyBatch(
-            devs=tuple(sorted_devs[lo:hi]), ret_s=ret[lo:hi],
-            read_fj=read_fj[lo:hi], write_fj=write_fj[lo:hi],
-            pad=pad[lo:hi], fallback=fallback[lo:hi],
-            lt_s=lt, reads=reads, bits=bits, groups=groups)
-        asg = pol.assign(batch)
+        if e_all is not None:
+            asg = None
+        else:
+            batch = PolicyBatch(
+                devs=tuple(sorted_devs[lo:hi]), ret_s=ret[lo:hi],
+                read_fj=read_fj[lo:hi], write_fj=write_fj[lo:hi],
+                pad=pad[lo:hi], fallback=fallback[lo:hi],
+                lt_s=lt, reads=reads, bits=bits, groups=groups)
+            asg = pol.assign(batch)
         for ci in range(lo, hi):
             devs, dset = sorted_devs[ci], sets[ci]
-            energy, frac = _numpy_candidate(
-                asg, ci - lo, devs, reads, bits, w)
+            if asg is None:
+                energy = float(e_all[ci])
+                frac = f_all[ci, :len(devs)].copy()
+            else:
+                energy, frac = _numpy_candidate(
+                    asg, ci - lo, devs, reads, bits, w)
             frac, quant = pol.capacity(frac, devs)
             mono = {d.name: mono_energy(d) for d in dset}
             sram_e = mono["SRAM"]
@@ -331,16 +474,19 @@ def compose(
     devices: Sequence[DeviceModel] | None = None,
     clock_hz: float = 1.0e9,
     policy: AssignmentPolicy | str = "refresh-free",
-    engine: str = "numpy",
+    engine: str = "torch",
+    device=None,
 ) -> Composition:
     """Derive the composition for one subpartition under one policy —
-    the single-candidate entry into :func:`evaluate`.  ``devices=None``
+    the single-candidate entry into :func:`evaluate` (``device``: the
+    torch device of ``engine="torch"``).  ``devices=None``
     (the default) uses ``repro_torch.core.devices.DEFAULT_DEVICES``."""
     if devices is None:
         from repro_torch.core.devices import DEFAULT_DEVICES  # lazy export
         devices = DEFAULT_DEVICES
     (comp,) = evaluate([tuple(devices)], stats, raw=raw,
-                       clock_hz=clock_hz, policy=policy, engine=engine)
+                       clock_hz=clock_hz, policy=policy, engine=engine,
+                       device=device)
     return comp
 
 

@@ -33,7 +33,9 @@ cache backend replays its streams on the session's ``device``);
 ``analyze()`` moves each subpartition's arrays to the session's torch
 ``device`` once and extracts lifetimes there (``device=None`` is the CUDA
 device and raises without one; tests pass ``device="cpu"``); Algorithm 1
-and the composition engine run in numpy on the valid lifetimes copied back.
+runs in numpy on the valid lifetimes copied back, and the composition
+engine runs the policy kernels on the session's device (``engine="torch"``,
+the default) or its numpy oracle (``engine="numpy"``).
 """
 
 from __future__ import annotations
@@ -285,13 +287,14 @@ class ProfileSession:
     def compose(self, *,
                 devices: Sequence[DeviceModel | str] | None = None,
                 policy="refresh-free",
-                engine="numpy") -> "ProfileSession":
+                engine="torch") -> "ProfileSession":
         """Derive the heterogeneous composition for every subpartition and
         attach it to the report (paper Table 7 / §7.1.5).  ``policy=``
         selects the assignment policy (``"refresh-free"`` default,
         ``"refresh-aware"``, ``"bank-quantized[:<base>][@<n_banks>]"`` —
         see :mod:`repro_torch.compose`); ``engine=`` the evaluation backend
-        (``"numpy"`` is the only one so far)."""
+        (``"torch"``, the default, runs the policy kernels on the session's
+        device; ``"numpy"`` is the oracle)."""
         if self._report is None:
             self.analyze()
         devs = resolve_devices(devices) if devices is not None \
@@ -299,7 +302,7 @@ class ProfileSession:
         for name, (st, raw) in self._stats.items():
             comp = compose_stats(st, raw=raw, devices=devs,
                                  clock_hz=self._clock_hz, policy=policy,
-                                 engine=engine)
+                                 engine=engine, device=self.device)
             self._compositions[name] = comp
             entry = {
                 "devices": list(comp.devices),
@@ -313,11 +316,30 @@ class ProfileSession:
             self._report["subpartitions"][name]["composition"] = entry
         return self
 
-    def sweep(self, grid=None, **kw):
-        """Composition design-space sweep: not ported yet."""
-        raise NotImplementedError(
-            "ProfileSession.sweep() is not ported yet: ROADMAP.md Queue A6 "
-            "(sweep/{grid,pareto,runner}.py)")
+    def sweep(self, grid=None, *, workers: int = 1,
+              policy="refresh-free", engine="torch", attach: bool = True):
+        """Evaluate a composition design-space sweep over every analyzed
+        subpartition and return the :class:`repro_torch.sweep.SweepResult`
+        (grid defaults to ``repro_torch.sweep.DeviceGrid()``; auto-runs
+        ``analyze()`` if needed).  ``policy=`` is the assignment policy
+        applied to every candidate; ``engine=`` the evaluation backend
+        (``"torch"``, the default, runs the policy kernels on the session's
+        device; ``"numpy"`` is the oracle).
+
+        With ``attach=True`` the per-subpartition Pareto frontiers are
+        also recorded under ``report()["sweep"]``.
+        """
+        from repro_torch.sweep import SweepRunner
+        self._require_analyzed()
+        runner = SweepRunner(grid, workers=workers, policy=policy,
+                             engine=engine, device=self.device)
+        result = runner.run_session(self)
+        if attach:
+            self._report["sweep"] = {
+                (sub if geom is None else f"{geom}/{sub}"):
+                frontier.asdict()
+                for (geom, sub), frontier in result.frontiers().items()}
+        return result
 
     def report(self, path: str | None = None) -> dict:
         """The JSON-serializable report; auto-runs analyze() if needed."""
@@ -330,7 +352,7 @@ class ProfileSession:
     def run(self, workload, *, mode: str | None = None,
             write_allocate: bool | None = None,
             devices: Sequence[DeviceModel | str] | None = None,
-            policy="refresh-free", engine="numpy",
+            policy="refresh-free", engine="torch",
             report_path: str | None = None, **cfg) -> dict:
         """profile -> analyze -> compose -> report in one call.
 

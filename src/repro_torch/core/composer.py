@@ -45,13 +45,16 @@ def compose(
     devices: Sequence[DeviceModel] = DEFAULT_DEVICES,
     clock_hz: float = 1.0e9,
     policy="refresh-free",
-    engine="numpy",
+    engine="torch",
+    device=None,
 ) -> Composition:
     """Derive the optimal composition for one subpartition under one
     assignment policy (see :mod:`repro_torch.compose`).  ``engine=``
-    selects the evaluation backend (``"numpy"`` is the only one so far)."""
+    selects the evaluation backend (``"torch"``, the default, runs the
+    policy kernels on ``device``: ``None`` is the CUDA device and raises
+    without one; ``"numpy"`` is the oracle)."""
     # function scope: the engine imports repro_torch.core, whose package
     # init imports this module
     from repro_torch.compose.engine import compose as _compose
     return _compose(stats, raw=raw, devices=devices, clock_hz=clock_hz,
-                    policy=policy, engine=engine)
+                    policy=policy, engine=engine, device=device)

@@ -14,9 +14,10 @@ composition, and emit the report (JSON + console).
   PYTHONPATH=src python -m repro_torch profile --backend gpu --dry-run \
       --device cpu
 
-Lifetime extraction, and the cache backend's set-parallel replay, run on
-the CUDA device unless ``--device`` names another; without a CUDA device
-and without ``--device cpu`` the command fails.
+Lifetime extraction, the cache backend's set-parallel replay and the
+composition (``--engine torch``, the default; ``--engine numpy`` is the
+host oracle) run on the CUDA device unless ``--device`` names another;
+without a CUDA device and without ``--device cpu`` the command fails.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ _DRY_SEQ = 16
 
 
 def _dry_run(backend: str, policy: str = "refresh-free",
-             engine: str = "numpy", csv_out: str | None = None,
+             engine: str = "torch", csv_out: str | None = None,
              device=None) -> dict:
     """Minimal end-to-end pipeline smoke: tiny built-in workload."""
     session = ProfileSession(backend, device=device)
@@ -137,15 +138,17 @@ def main(argv=None):
     ap.add_argument("--policy", default="refresh-free",
                     help="assignment policy: refresh-free | refresh-aware"
                          " | bank-quantized[:<base>][@<n_banks>]")
-    ap.add_argument("--engine", default="numpy", choices=ENGINES,
-                    help="composition evaluation backend")
+    ap.add_argument("--engine", default="torch", choices=ENGINES,
+                    help="composition evaluation backend (torch, the "
+                         "default, runs the policy kernels on --device; "
+                         "numpy is the host oracle)")
     ap.add_argument("--chunk-events", type=int, default=None,
                     help="stream the trace to the frontend in chunks of "
                          "this many events (bounded-memory analysis)")
     ap.add_argument("--device", default=None,
-                    help="torch device of the lifetime extraction and of "
-                         "the cache replay (default: the CUDA device; fails "
-                         "without one)")
+                    help="torch device of the lifetime extraction, the "
+                         "cache replay and --engine torch (default: the "
+                         "CUDA device; fails without one)")
     ap.add_argument("--dry-run", action="store_true",
                     help="tiny built-in workload; pipeline smoke test")
     args = ap.parse_args(argv)

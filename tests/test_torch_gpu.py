@@ -8,7 +8,8 @@ version on the same inputs with the CPU tests' tolerances (the backward
 kernels in float32 within 1e-5; the bf16 tensor-core kernels within the
 bf16 tolerances and bit-equal from run to run; the lifetime scan exactly,
 on structured streams that put segment edges on the kernel's range edges;
-the cache replay bit for bit, on random, skewed and near-2^59 streams),
+the cache replay bit for bit, on random, skewed and near-2^59 streams;
+the policy kernels with exact counts and picks and energy within 1e-12),
 and the serving and training paths with the kernels against the JAX
 reference's golden fixtures.
 ``python3 chip_smoke.py`` is the full on-card check.
@@ -480,3 +481,107 @@ def test_cache_replay_kernel_limits_and_hierarchy(cuda):
         want = cachesim.simulate_hierarchy(t, a, w, cfg, device="cpu")
         for f in ("time_cycles", "addr", "is_write", "hit", "subpartition"):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def _b7_inputs(seg_len, C, D, seed, device):
+    """Address-sorted lifetimes with integer reads and bits, the
+    value-sorted side, and [C, D] candidates with NaN in padded slots."""
+    rng = np.random.RandomState(seed)
+    seg_len = np.asarray(seg_len, np.int64)
+    L = int(seg_len.sum())
+    lt = rng.lognormal(np.log(2e-6), 2.0, L)
+    bits = np.where(rng.rand(L) < 0.8, 256.0, 1024.0)
+    rb = rng.poisson(3.0, L) * bits
+    seg = np.repeat(np.arange(len(seg_len), dtype=np.int32), seg_len)
+    starts = np.concatenate([[0], np.cumsum(seg_len)[:-1]])
+    order = np.argsort(lt, kind="stable")
+    n_dev = rng.randint(1, D + 1, C).astype(np.int32)
+    n_dev[0] = D
+    cand = np.full((3, C, D), np.nan)
+    for c in range(C):
+        cand[0, c, :n_dev[c]] = np.where(rng.rand(n_dev[c]) < 0.2, np.inf,
+                                         rng.lognormal(np.log(2e-6), 2.0,
+                                                       n_dev[c]))
+        cand[1:, c, :n_dev[c]] = rng.uniform(0.5, 20.0, (2, n_dev[c]))
+
+    def put(a, dt=torch.float64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)
+
+    cands = (put(cand[0]), put(cand[1]), put(cand[2]),
+             put(n_dev, torch.int32))
+    value = (put(lt[order]),
+             put(np.concatenate([[0.0], np.cumsum(bits[order])])),
+             put(np.concatenate([[0.0], np.cumsum(rb[order])])),
+             put(np.sort(np.maximum.reduceat(lt, starts))))
+    addr = (put(lt), put(rb), put(bits), put(seg, torch.int32),
+            put(np.add.reduceat(bits, starts)), put(np.add.reduceat(rb,
+                                                                    starts)))
+    return cands, value, addr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seg_len,C,D", [
+    ([1] * 20_000, 7, 3),                       # one lifetime per address
+    ([50_000], 5, 16),                          # one address, many ranges
+    ([1, 30_001, 1024, 1023, 1025, 8, 7, 9, 2], 20, 5),
+    (list(np.random.RandomState(1).geometric(0.1, 3000)), 33, 9),
+])
+def test_compose_policy_kernels_match_plain(cuda, seg_len, C, D):
+    """B7: counts and picks exactly, energy within 1e-12 relative of the
+    plain version, two runs bit-equal, one launch per call."""
+    from repro_torch.kernels.compose_policy import kernel as k
+    cands, value, addr = _b7_inputs(seg_len, C, D, len(seg_len), cuda)
+    for fn, plain, arrays in ((k.policy_rf, k.policy_rf_plain, value),
+                              (k.policy_ra_grouped,
+                               k.policy_ra_grouped_plain, addr),
+                              (k.policy_ra_ungrouped,
+                               k.policy_ra_ungrouped_plain, addr[:3])):
+        before = fn.launches
+        got = fn(*cands, *arrays)
+        again = fn(*cands, *arrays)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = plain(*cands, *arrays)
+        assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(got[0].sum(dim=-1) if got[0].dim() > 1
+                                   else got[0], want[0].sum(dim=-1)
+                                   if want[0].dim() > 1 else want[0],
+                                   rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+def test_compose_policy_limits_and_torch_engine_on_the_card(cuda):
+    """More than 16 device slots raise on the card (ROADMAP D26); the
+    torch engine on the card (the default) equals the NumPy engine
+    (capacity exactly, energy 1e-9) and goes through the kernels, not the
+    plain versions."""
+    from repro_torch.backends.systolic import GemmLayer
+    from repro_torch.core import ProfileSession
+    from repro_torch.kernels.compose_policy import kernel as k
+    from repro_torch.sweep import DeviceGrid
+    z = torch.zeros(2, 17, dtype=torch.float64, device=cuda)
+    n = torch.ones(2, dtype=torch.int32, device=cuda)
+    e = torch.zeros(1, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="up to 16 device slots"):
+        k.policy_rf(z, z, z, n, e, torch.zeros(2, dtype=torch.float64,
+                                                device=cuda),
+                    torch.zeros(2, dtype=torch.float64, device=cuda), e)
+    s = ProfileSession("systolic", device=cuda)
+    s.profile([GemmLayer("a", 48, 64, 64), GemmLayer("b", 32, 48, 96)],
+              rows=32, cols=32).analyze()
+    grid = DeviceGrid(mixes=(0.0, 0.5, 1.0), retention_scales=(0.5, 1, 2))
+    for policy in ("refresh-free", "refresh-aware", "bank-quantized"):
+        plain = (k.policy_rf_plain.calls, k.policy_ra_grouped_plain.calls)
+        launches = k.policy_rf.launches + k.policy_ra_grouped.launches
+        got = s.sweep(grid, policy=policy).points
+        assert k.policy_rf.launches + k.policy_ra_grouped.launches == \
+            launches + 3
+        assert (k.policy_rf_plain.calls,
+                k.policy_ra_grouped_plain.calls) == plain
+        want = s.sweep(grid, policy=policy, engine="numpy").points
+        for a, b in zip(got, want):
+            assert np.array_equal(a.composition.capacity_fractions,
+                                  b.composition.capacity_fractions)
+            assert a.composition.energy_j == pytest.approx(
+                b.composition.energy_j, rel=1e-9, abs=0)

@@ -64,7 +64,15 @@ def test_port_imports_neither_jax_nor_reference():
                    "repro_torch.kernels.cache_replay",
                    "repro_torch.kernels.cache_replay.kernel",
                    "repro_torch.kernels.cache_replay.ops",
-                   "repro_torch.core.orphans", "repro_torch.core.pka"):
+                   "repro_torch.core.orphans", "repro_torch.core.pka",
+                   "repro_torch.kernels.compose_policy",
+                   "repro_torch.kernels.compose_policy.kernel",
+                   "repro_torch.kernels.compose_policy.ops",
+                   "repro_torch.compose.executor",
+                   "repro_torch.compose.torch_engine",
+                   "repro_torch.sweep", "repro_torch.sweep.grid",
+                   "repro_torch.sweep.pareto", "repro_torch.sweep.runner",
+                   "repro_torch.launch.sweep"):
         assert needed in mods
     code = (
         "import importlib, json, sys\n"
@@ -302,7 +310,10 @@ def test_build_module_names_its_library_by_source_hash():
                "ssd_scan": ["ssd_scan"],
                "flash_attention_bwd": ["flash_attention_bwd_dq",
                                        "flash_attention_bwd_dkv"],
-               "cache_replay": ["cache_replay"]}
+               "cache_replay": ["cache_replay"],
+               "compose_policy": ["compose_policy_rf",
+                                  "compose_policy_ra_grouped",
+                                  "compose_policy_ra_ungrouped"]}
     for name, fns in entries.items():
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         for fn in fns:
