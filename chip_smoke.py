@@ -119,16 +119,38 @@ B6_SETS = (1, 8, 128, 2048, 4096)
 B6_MAX_SLOTS = 2000
 # the 1 M-event stream of benchmarks/cachesim_bench.py (_mixed_stream)
 # B7 (compose_policy) against its plain version on the card
-B7_ENERGY_RTOL = 1e-12
+B7_ENERGY_RTOL = 1e-15
+# floor sums are integer counts times integer block bits: below 2**53 every
+# partial sum is an exact integer, so they are compared exactly there
+B7_FLOOR_EXACT_BELOW = 2.0 ** 53
+B7_TOLERANCE = (f"counts, picks, per-address refresh sums and floor sums "
+                f"below 2**53 exact, energy {B7_ENERGY_RTOL} relative")
 B7_SOURCE = "src/repro_torch/csrc/compose_policy.cu"
 B7_RF_REPLACES = "src/repro/compose/executor.py:272"
 B7_RA_REPLACES = "src/repro/compose/executor.py:312"
 B7_UNGROUPED_REPLACES = "src/repro/compose/executor.py:351"
 FP64_FLOPS_PER_S = 34e12         # H100 SXM fp64 outside the tensor cores
-# B7's rows on the kernels line and their launch counts in b7_counts()
+# B7's rows on the kernels line: each kernel's wrapper and its key in
+# b7_counts() (the retention pass also gives the monolithic baselines)
 B7_LAUNCH_KEYS = {"compose_policy_rf": "rf",
+                  "compose_policy_retention": "retention",
                   "compose_policy_ra_grouped": "ra_grouped",
+                  "compose_policy_ra_decide": "ra_decide",
                   "compose_policy_ra_ungrouped": "ra_ungrouped"}
+# fp64 operations the bounds count: a refresh-aware energy per (candidate,
+# device, lifetime or address) (2 products and 2 sums of energy_fj, the
+# refresh term's product, the comparison, the minimum), the retention
+# pass's per (retention, lifetime) with addresses (division, ceil,
+# subtraction, maximum, product, sum) and without (division, floor,
+# product, sum), the candidate pass's recompute of the refresh bits
+# (division, ceil, subtraction, maximum, product)
+B7_OPS_ENERGY = 7
+B7_OPS_RETENTION = 6
+B7_OPS_FLOOR = 4
+B7_OPS_REFRESH = 5
+# B7 before the retention index (the per-candidate kernels): 8 fp64
+# operations per real (candidate, device, lifetime), its old bound
+B7_OPS_OLD = 8
 # the sweep phase: the CLI's default grid (4 candidates, D <= 4) and the
 # wide grid (73 candidates, D = 4); torch against numpy
 SWEEP_GRID = {"mixes": (0.0, 0.5, 1.0), "retention_scales": (0.5, 1.0, 2.0)}
@@ -1224,7 +1246,9 @@ def kernel_label(mangled: str) -> str:
             args.append("float")
         elif head.startswith("I13__nv_bfloat16"):
             args.append("bf16")
-        args += re.findall(r"Li(\d+)E", head)
+        for kind, value in re.findall(r"L([ib])(\d+)E", head):
+            args.append(value if kind == "i" else
+                        ("true" if value == "1" else "false"))
     return f"{name}<{', '.join(args)}>" if args else name
 
 
@@ -1448,10 +1472,10 @@ def phase_full(torch, np, device, golden) -> dict:
         raise AssertionError(
             f"lifetime_scan launched {launches} time(s) on the main path, "
             f"expected one per subpartition ({len(trace.names)})")
-    if b7 != {"rf": live_subpartitions(session), "ra_grouped": 0,
-              "ra_ungrouped": 0, "plain": 0}:
+    if b7 != compose_b7_counts(session):
         raise AssertionError(f"full: compose made B7 calls {b7}, expected "
-                             "one refresh-free launch per subpartition")
+                             "one refresh-free launch and one retention "
+                             "pass (the baselines) per subpartition")
 
     emit("full", arch=run["arch"], n_layers=FULL_LAYERS, seq=run["seq"],
          pe=run["pe"], dataflow=run["dataflow"], events=trace.n_events,
@@ -1753,49 +1777,120 @@ def b7_candidates(torch, np, device, C, D, seed, pool=None, rets=()):
     return put(ret), put(rf), put(wf), put(n_dev, torch.int32)
 
 
-def b7_energy(out):
-    """The [C] energy of a policy kernel's output (the refresh-aware
-    kernels return per-block partials)."""
-    return out[0] if out[0].dim() == 1 else out[0].sum(dim=1)
+def b7_index(torch, np, cands):
+    """The retention index of [C, D] candidates on the card: host arrays
+    and their tensors on the candidates' device."""
+    from repro_torch.kernels.compose_policy import ops
+    ret, n_dev = cands[0], cands[3]
+    D = ret.shape[1]
+    pad = np.arange(D)[None, :] >= n_dev.cpu().numpy()[:, None]
+    ret_u, ridx = ops.retention_index(ret.cpu().numpy(), pad)
+    return {"ret_u_host": ret_u, "ridx_host": ridx,
+            "ret_u": torch.from_numpy(ret_u).to(ret.device),
+            "ridx": torch.from_numpy(ridx).to(ret.device)}
 
 
-def b7_compare(torch, got, want, what) -> float:
-    """A policy kernel's output against its plain version's: counts and
-    picks exactly, energy within B7_ENERGY_RTOL; returns the largest
-    relative energy difference."""
-    if not torch.equal(got[1], want[1]):
-        bad = (got[1] != want[1]).nonzero()[0].tolist()
-        raise AssertionError(
-            f"compose_policy {what}: counts/picks differ from the plain "
-            f"version at {bad}: {got[1][tuple(bad)].item()} vs "
-            f"{want[1][tuple(bad)].item()}")
-    g, w = b7_energy(got), b7_energy(want)
-    err = float(((g - w).abs() / w.abs()).max())
-    if not err <= B7_ENERGY_RTOL:
-        raise AssertionError(f"compose_policy {what}: energy off by {err} "
-                             "relative")
-    return err
-
-
-def b7_check_case(torch, cands, trace, what) -> dict:
-    """Each policy kernel twice (bit-equal) and against its plain version
-    on the card: counts and picks exactly, energy within B7_ENERGY_RTOL."""
+def b7_runs(torch, np, cands, value, addr, orig=None) -> list:
+    """(name, wrapper, plain, args, kinds) of every B7 kernel on one input:
+    the refresh-free kernel, the retention pass with and without address
+    groups, the decision per address, and both candidate passes once per
+    retention group (``orig``: the ungrouped pass's lifetimes, by default
+    the address-sorted ones).  ``kinds`` says per output whether it is
+    compared exactly (counts, picks, per-address sums), summed per row
+    within B7_ENERGY_RTOL (energy partials) or summed per row and compared
+    exactly below B7_FLOOR_EXACT_BELOW (floor partials)."""
     from repro_torch.kernels.compose_policy import kernel as k
+    from repro_torch.kernels.compose_policy import ops
+    idx = b7_index(torch, np, cands)
+    _, rf, wf, n_dev = cands
+    lt, rb, bits, seg, abits, arbits = addr
+    A = int(abits.shape[0])
+    dev = lt.device
+    runs = [("refresh-free", k.policy_rf, k.policy_rf_plain,
+             (*cands, *value), ("sum", "exact"))]
+    ret_u, ridx = idx["ret_u"], idx["ridx"]
+    if len(idx["ret_u_host"]):        # R = 0 launches nothing
+        runs += [("retention pass", k.policy_retention,
+                  k.policy_retention_plain, (ret_u, lt, bits, seg, A),
+                  ("exact", "floor")),
+                 ("retention pass without addresses", k.policy_retention,
+                  k.policy_retention_plain, (ret_u, lt, bits),
+                  ("exact", "floor"))]
+    rs = k.policy_retention_plain(ret_u, lt, bits, seg, A)[0]
+    runs.append(("decide", k.policy_ra_decide, k.policy_ra_decide_plain,
+                 (ridx, rf, wf, n_dev, rs, abits, arbits), ("exact",)))
+    o_lt, o_rb, o_bits = orig if orig is not None else (lt, rb, bits)
+    for lo, hi, rows in ops.retention_groups(idx["ridx_host"],
+                                             len(idx["ret_u_host"])):
+        u, r = ops._local_index(idx["ret_u_host"], idx["ridx_host"], lo, hi,
+                                rows)
+        local = (torch.from_numpy(u).to(dev), torch.from_numpy(r).to(dev),
+                 rf[lo:hi], wf[lo:hi], n_dev[lo:hi])
+        runs += [(f"grouped candidates {lo}:{hi}", k.policy_ra_grouped,
+                  k.policy_ra_grouped_plain, (*local, lt, rb, bits),
+                  ("sum",)),
+                 (f"ungrouped candidates {lo}:{hi}", k.policy_ra_ungrouped,
+                  k.policy_ra_ungrouped_plain, (*local, o_lt, o_rb, o_bits),
+                  ("sum", "exact"))]
+    return runs
 
+
+def b7_compare(torch, got, want, kinds, what) -> float:
+    """A policy kernel's output against its plain version's: each output
+    exactly, or summed per row (see b7_runs); returns the largest relative
+    difference of the summed ones."""
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    worst = 0.0
+    for i, (g, w, kind) in enumerate(zip(got, want, kinds)):
+        if w is None:
+            if g is not None:
+                raise AssertionError(f"compose_policy {what}: output {i} "
+                                     "should be None")
+            continue
+        if kind == "exact":
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[0].tolist()
+                raise AssertionError(
+                    f"compose_policy {what}: output {i} differs from the "
+                    f"plain version at {bad}: {g[tuple(bad)].item()} vs "
+                    f"{w[tuple(bad)].item()}")
+            continue
+        gs = g.sum(dim=-1) if g.dim() > 1 else g
+        ws = w.sum(dim=-1) if w.dim() > 1 else w
+        if kind == "floor":
+            small = ws < B7_FLOOR_EXACT_BELOW
+            if not torch.equal(gs[small], ws[small]):
+                raise AssertionError(f"compose_policy {what}: floor sums "
+                                     "below 2**53 differ from the plain "
+                                     "version")
+            gs, ws = gs[~small], ws[~small]
+        err = float(((gs - ws).abs() / ws.abs().clamp_min(1e-300)).max()) \
+            if ws.numel() else 0.0
+        if not err <= B7_ENERGY_RTOL:
+            raise AssertionError(f"compose_policy {what}: output {i} off by "
+                                 f"{err} relative")
+        worst = max(worst, err)
+    return worst
+
+
+def b7_check_case(torch, np, cands, trace, what) -> dict:
+    """Each policy kernel twice (bit-equal) and against its plain version
+    on the card (see b7_runs and b7_compare)."""
     def same(a, b):
-        return all(torch.equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            a, b = (a,), (b,)
+        return all(x is None and y is None or torch.equal(x, y)
+                   for x, y in zip(a, b))
 
     worst = 0.0
-    runs = [
-        ("refresh-free", k.policy_rf, k.policy_rf_plain, trace["value"]),
-        ("refresh-aware grouped", k.policy_ra_grouped,
-         k.policy_ra_grouped_plain, trace["addr"]),
-        ("refresh-aware ungrouped", k.policy_ra_ungrouped,
-         k.policy_ra_ungrouped_plain, trace["addr"][:3])]
-    for name, fn, plain, arrays in runs:
+    idx = b7_index(torch, np, cands)
+    for name, fn, plain, args, kinds in b7_runs(torch, np, cands,
+                                                trace["value"],
+                                                trace["addr"]):
         before = fn.launches
-        got = fn(*cands, *arrays)
-        again = fn(*cands, *arrays)
+        got = fn(*args)
+        again = fn(*args)
         torch.cuda.synchronize()
         if fn.launches != before + 2:
             raise AssertionError(f"compose_policy {what} {name}: the wrapper "
@@ -1803,11 +1898,11 @@ def b7_check_case(torch, cands, trace, what) -> dict:
         if not same(got, again):
             raise AssertionError(f"compose_policy {what} {name}: two runs "
                                  "differ")
-        worst = max(worst, b7_compare(torch, got, plain(*cands, *arrays),
+        worst = max(worst, b7_compare(torch, got, plain(*args), kinds,
                                       f"{what} {name}"))
     return {"case": what, "L": trace["L"], "A": trace["A"],
             "C": int(cands[0].shape[0]), "D": int(cands[0].shape[1]),
-            "energy_max_rel_err": worst}
+            "R": len(idx["ret_u_host"]), "energy_max_rel_err": worst}
 
 
 def phase_compose_policy_check(torch, np, device) -> dict:
@@ -1834,7 +1929,7 @@ def phase_compose_policy_check(torch, np, device) -> dict:
         D = int(rng.randint(1, 17)) if i else 16
         C = int(rng.randint(1, 41))
         detail.append(b7_check_case(
-            torch, b7_candidates(torch, np, device, C, D, 900 + i),
+            torch, np, b7_candidates(torch, np, device, C, D, 900 + i),
             b7_trace(torch, np, device, seg_len, 1000 + i),
             f"random mean_segment={mean}"))
     exact = (2.0 ** -20, 3 * 2.0 ** -21, 5 * 2.0 ** -22)
@@ -1860,7 +1955,8 @@ def phase_compose_policy_check(torch, np, device) -> dict:
     for j, (what, seg_len, tkw, ckw) in enumerate(structured):
         D = 4 if "sot" in what else int((3, 8, 16, 5, 4, 4)[j])
         detail.append(b7_check_case(
-            torch, b7_candidates(torch, np, device, 24, D, 950 + j, **ckw),
+            torch, np, b7_candidates(torch, np, device, 24, D, 950 + j,
+                                     **ckw),
             b7_trace(torch, np, device, seg_len, 1100 + j, **tkw), what))
     # SRAM alone, and infinite retention in every slot
     tr = b7_trace(torch, np, device, rng.geometric(1 / 20, 3000), 1200)
@@ -1868,33 +1964,35 @@ def phase_compose_policy_check(torch, np, device) -> dict:
     en = torch.tensor([[15.0, 1.0, 2.0, 3.0]] * 3, dtype=torch.float64,
                       device=device)
     nd = torch.tensor([1, 4, 2], dtype=torch.int32, device=device)
-    detail.append(b7_check_case(torch, (inf, en, en.flip(1), nd), tr,
+    detail.append(b7_check_case(torch, np, (inf, en, en.flip(1), nd), tr,
                                 "sram_infinite_retention"))
     worst = max(d["energy_max_rel_err"] for d in detail)
     emit("kernel_check", kernel="compose_policy", cases=len(detail),
-         detail=detail, repeat_runs="bit-equal energy, counts and picks",
-         tolerance=f"counts and picks exact, energy {B7_ENERGY_RTOL} "
-                   "relative", max_rel_err=worst)
+         detail=detail, repeat_runs="bit-equal energy, counts, picks and "
+                                    "refresh sums",
+         tolerance=B7_TOLERANCE, max_rel_err=worst)
     return {"max_rel_err": worst}
 
 
 def reset_b7_counts():
     from repro_torch.kernels.compose_policy import kernel as k
-    for fn in (k.policy_rf, k.policy_ra_grouped, k.policy_ra_ungrouped):
+    for fn in k.KERNELS:
         fn.launches = 0
-    for fn in (k.policy_rf_plain, k.policy_ra_grouped_plain,
-               k.policy_ra_ungrouped_plain):
+    for fn in k.PLAIN:
         fn.calls = 0
 
 
 def b7_counts() -> dict:
+    """Each B7 kernel's launches under its key, and every plain-version
+    call summed under "plain"."""
     from repro_torch.kernels.compose_policy import kernel as k
-    return {"rf": k.policy_rf.launches,
-            "ra_grouped": k.policy_ra_grouped.launches,
-            "ra_ungrouped": k.policy_ra_ungrouped.launches,
-            "plain": k.policy_rf_plain.calls
-            + k.policy_ra_grouped_plain.calls
-            + k.policy_ra_ungrouped_plain.calls}
+    out = {"rf": k.policy_rf.launches,
+           "retention": k.policy_retention.launches,
+           "ra_grouped": k.policy_ra_grouped.launches,
+           "ra_decide": k.policy_ra_decide.launches,
+           "ra_ungrouped": k.policy_ra_ungrouped.launches}
+    out["plain"] = sum(fn.calls for fn in k.PLAIN)
+    return out
 
 
 def live_subpartitions(session) -> int:
@@ -1903,9 +2001,19 @@ def live_subpartitions(session) -> int:
     return sum(len(st.lifetimes_s) > 0 for st, _ in session._stats.values())
 
 
+def compose_b7_counts(session) -> dict:
+    """A fresh session's compose step: per subpartition with lifetimes one
+    refresh-free launch and one retention pass (its monolithic
+    baselines), nothing else."""
+    n = live_subpartitions(session)
+    return {"rf": n, "retention": n, "ra_grouped": 0, "ra_decide": 0,
+            "ra_ungrouped": 0, "plain": 0}
+
+
 def sweep_contract(torch_pts, numpy_pts, what) -> float:
-    """Capacity fractions bit-identical, energy within SWEEP_ENERGY_RTOL;
-    returns the largest relative energy difference."""
+    """Capacity fractions and bank quantization bit-identical; energy,
+    monolithic baselines and energy_vs_sram within SWEEP_ENERGY_RTOL;
+    returns the largest relative difference."""
     import numpy as np
     if len(torch_pts) != len(numpy_pts):
         raise AssertionError(f"sweep {what}: point counts differ")
@@ -1919,11 +2027,20 @@ def sweep_contract(torch_pts, numpy_pts, what) -> float:
             raise AssertionError(
                 f"sweep {what} {a.subpartition}/{a.candidate}: capacity "
                 f"{ca.capacity_fractions} != numpy {cb.capacity_fractions}")
-        err = abs(ca.energy_j - cb.energy_j) / abs(cb.energy_j)
-        if not err <= SWEEP_ENERGY_RTOL:
-            raise AssertionError(f"sweep {what} {a.subpartition}/"
-                                 f"{a.candidate}: energy off by {err}")
-        worst = max(worst, err)
+        # energy, the monolithic baselines (on the torch engine from the
+        # retention pass's floor sums) and energy_vs_sram
+        pairs = [("energy_j", ca.energy_j, cb.energy_j),
+                 ("energy_vs_sram", ca.energy_vs_sram, cb.energy_vs_sram)]
+        if sorted(ca.monolithic_energy_j) != sorted(cb.monolithic_energy_j):
+            raise AssertionError(f"sweep {what}: baselines of other devices")
+        pairs += [(f"monolithic_energy_j[{d}]", e, cb.monolithic_energy_j[d])
+                  for d, e in ca.monolithic_energy_j.items()]
+        for field, x, y in pairs:
+            err = abs(x - y) / abs(y)
+            if not err <= SWEEP_ENERGY_RTOL:
+                raise AssertionError(f"sweep {what} {a.subpartition}/"
+                                     f"{a.candidate}: {field} off by {err}")
+            worst = max(worst, err)
     return worst
 
 
@@ -2008,7 +2125,7 @@ def phase_sweep(torch, np, device, name, session, two_layer,
         after = b7_counts()
         if after["plain"] != before["plain"] or sum(
                 after[key] - before[key] for key in
-                ("rf", "ra_grouped", "ra_ungrouped")) == 0:
+                B7_LAUNCH_KEYS.values()) == 0:
             raise AssertionError(f"sweep {name} {policy}: B7 launches "
                                  f"{before} -> {after}")
         res_n, t_numpy = timed_sweep(torch, lambda: session.sweep(
@@ -2030,26 +2147,35 @@ def phase_sweep(torch, np, device, name, session, two_layer,
         "torch_s": t_torch, "numpy_s": t_numpy, "points": len(pts_t)}
     launches = b7_counts()                     # main path ends here
     if launches["plain"] or not all(launches[key] for key in
-                                    ("rf", "ra_grouped", "ra_ungrouped")):
+                                    B7_LAUNCH_KEYS.values()):
         raise AssertionError(f"sweep {name} main path: B7 counts "
                              f"{launches}")
 
     # the wide grid on the torch engine; its warm wall split into the
     # kernels (CUDA events over the same wrapper calls), the monolithic
-    # baselines (the engine's analyze_energy calls, timed in place) and
-    # the rest of the host epilogue
-    wide_runs, mono = {}, {"s": 0.0, "calls": 0}
+    # baselines (the executor's floor_refresh_bits calls, timed in place:
+    # the retention pass on a retention not yet memoized, the host
+    # lookups) and the rest of the host epilogue; analyze_energy is
+    # counted, and must not run
+    wide_runs, mono = {}, {"s": 0.0, "calls": 0, "analyze_energy_calls": 0}
+    floor_refresh_bits = executor.floor_refresh_bits
     analyze_energy = ce.analyze_energy
 
-    def timed_analyze_energy(*args, **kwargs):
+    def timed_floor_refresh_bits(*args, **kwargs):
         t0 = time.perf_counter()
         try:
-            return analyze_energy(*args, **kwargs)
+            return floor_refresh_bits(*args, **kwargs)
         finally:
+            torch.cuda.synchronize()
             mono["s"] += time.perf_counter() - t0
             mono["calls"] += 1
 
-    ce.analyze_energy = timed_analyze_energy
+    def counted_analyze_energy(*args, **kwargs):
+        mono["analyze_energy_calls"] += 1
+        return analyze_energy(*args, **kwargs)
+
+    executor.floor_refresh_bits = timed_floor_refresh_bits
+    ce.analyze_energy = counted_analyze_energy
     try:
         for policy in ("refresh-free", "refresh-aware"):
             res_w, t_w = timed_sweep(torch, lambda: session.sweep(
@@ -2057,13 +2183,19 @@ def phase_sweep(torch, np, device, name, session, two_layer,
             wide_runs[f"{name} {policy}"] = {"torch_s": t_w,
                                              "points": len(res_w)}
     finally:
+        executor.floor_refresh_bits = floor_refresh_bits
         ce.analyze_energy = analyze_energy
+    if mono["analyze_energy_calls"]:
+        raise AssertionError(f"sweep {name}: the torch engine made "
+                             f"{mono['analyze_energy_calls']} analyze_energy "
+                             "calls")
     kernel_s = sum(b7_call_ms(torch, np, session, wide, device, policy)
                    for policy in ("refresh-free", "refresh-aware")) / 1e3
     walls = sum(v["torch_s"] for v in wide_runs.values())
     split.update(wide_grid_warm_s=walls, wide_grid_kernels_s=kernel_s,
                  wide_grid_monolithic_baselines_s=mono["s"],
                  wide_grid_monolithic_baseline_calls=mono["calls"],
+                 wide_grid_analyze_energy_calls=mono["analyze_energy_calls"],
                  wide_grid_rest_of_epilogue_s=walls - kernel_s - mono["s"])
     name2, session2 = two_layer(torch)
     for policy in ("refresh-free", "refresh-aware"):
@@ -2099,14 +2231,17 @@ def phase_sweep(torch, np, device, name, session, two_layer,
          wide_runs=wide_runs, time_split_s=split, launches=launches,
          energy_max_rel_err=worst,
          contract=f"capacity fractions and bank quantization bit-identical "
-                  f"to engine=numpy, energy within {SWEEP_ENERGY_RTOL}",
+                  f"to engine=numpy; energy, monolithic baselines and "
+                  f"energy_vs_sram within {SWEEP_ENERGY_RTOL}",
          **fields)
     return {"launches": launches, "max_rel_err": worst}
 
 
-def b7_inputs_of(np, session, grid, device, policy, sub=None):
+def b7_inputs_of(torch, np, session, grid, device, sub=None) -> dict:
     """The kernel inputs one ``evaluate`` call of ``session``'s
-    subpartition ``sub`` (the first by default) hands to B7."""
+    subpartition ``sub`` (the first by default) hands to B7: candidates,
+    retention index, and the residence's value-sorted, address-sorted and
+    original-order arrays."""
     from repro_torch.compose import engine as ce
     from repro_torch.compose import executor
     from repro_torch.kernels.compose_policy import ops
@@ -2126,98 +2261,196 @@ def b7_inputs_of(np, session, grid, device, policy, sub=None):
     cands = ops.candidate_tensors(*mats, pad, device)
     view = ce.sorted_trace_view(st, raw, session._clock_hz)
     res = executor._residence_for(view, device)
-    if policy == "refresh-free":
-        return cands, res.value_sorted(view)
-    if policy == "refresh-aware":
-        return cands, res.addr_sorted(view)
-    return cands, res.original(st.lifetimes_s, st.accesses_per_lifetime
-                               - 1.0, st.lifetime_bits)
+    return {"sub": name, "cands": cands, **b7_index(torch, np, cands),
+            "value": res.value_sorted(view), "addr": res.addr_sorted(view),
+            "orig": res.original(st.lifetimes_s,
+                                 st.accesses_per_lifetime - 1.0,
+                                 st.lifetime_bits)}
+
+
+def b7_grouped_call(inp):
+    """The refresh-aware grouped call's three kernels on ``inp`` (one
+    retention group): the retention pass, the candidate pass, the
+    decision per address; returns the pick counts."""
+    from repro_torch.kernels.compose_policy import kernel as k
+    _, rf, wf, n_dev = inp["cands"]
+    lt, rb, bits, seg, abits, arbits = inp["addr"]
+    rs, _ = k.policy_retention(inp["ret_u"], lt, bits, seg,
+                               abits.shape[0])
+    k.policy_ra_grouped(inp["ret_u"], inp["ridx"], rf, wf, n_dev, lt, rb,
+                        bits)
+    return k.policy_ra_decide(inp["ridx"], rf, wf, n_dev, rs, abits, arbits)
 
 
 def b7_call_ms(torch, np, session, grid, device, policy) -> float:
     """Median ms of the kernel calls one sweep of ``session`` makes under
-    ``policy``, summed over its subpartitions."""
+    ``policy``, summed over its subpartitions (refresh-aware: the three
+    kernels of a grouped call)."""
     from repro_torch.kernels.compose_policy import kernel as k
-    fn = k.policy_rf if policy == "refresh-free" else k.policy_ra_grouped
     total = 0.0
     for sub in session._stats:
-        cands, arrays = b7_inputs_of(np, session, grid, device, policy, sub)
-        total += statistics.median(cuda_ms(lambda: fn(*cands, *arrays),
-                                           runs=5))
+        inp = b7_inputs_of(torch, np, session, grid, device, sub)
+        if policy == "refresh-free":
+            def call():
+                k.policy_rf(*inp["cands"], *inp["value"])
+        else:
+            def call():
+                b7_grouped_call(inp)
+        total += statistics.median(cuda_ms(call, runs=5))
     return total
 
 
+def b7_check_at(torch, np, device, session, grid, sub, what) -> float:
+    """Every B7 kernel on ``session``'s subpartition ``sub`` at ``grid``,
+    held against its plain version on the card (see b7_runs); returns the
+    largest relative difference of the energy (and of floor sums at or
+    above 2**53)."""
+    inp = b7_inputs_of(torch, np, session, grid, device, sub)
+    worst = 0.0
+    for name, fn, plain, args, kinds in b7_runs(
+            torch, np, inp["cands"], inp["value"], inp["addr"],
+            inp["orig"]):
+        worst = max(worst, b7_compare(torch, fn(*args), plain(*args), kinds,
+                                      f"{what} {name}"))
+    torch.cuda.synchronize()
+    return worst
+
+
+def b7_gpu_skew_check(torch, np, device, session) -> dict:
+    """B7 held against its plain version at the wide grid on the
+    GPU-cache session's subpartition of most lifetimes (1-3 lifetimes an
+    address)."""
+    from repro_torch.sweep import DeviceGrid
+    sub = max(session._stats,
+              key=lambda n: len(session._stats[n][0].lifetimes_s))
+    st, raw = session._stats[sub]
+    t0 = time.perf_counter()
+    err = b7_check_at(torch, np, device, session,
+                      DeviceGrid(**SWEEP_WIDE_GRID), sub,
+                      "the wide grid, gpu")
+    out = {"subpartition": sub, "lifetimes": int(len(st.lifetimes_s)),
+           "addresses": int(len(np.unique(raw.numpy().addr))),
+           "max_rel_err": err, "seconds": time.perf_counter() - t0}
+    emit("kernel_check", kernel="compose_policy at the wide grid, gpu skew",
+         **out, tolerance=B7_TOLERANCE)
+    return out
+
+
+def b7_bound(n_bytes, n_ops) -> dict:
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP64_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def time_compose_policy(torch, np, device, session, check) -> list:
-    """B7's rows: each kernel at the wide grid (73 candidates, D = 4) on
-    the full-depth systolic subpartition (5,592,576 lifetimes), its output
-    there held against the plain version's; their ``launches`` are filled
-    in from the compose and sweep phases' main runs."""
+    """B7's rows: each kernel at the wide grid (73 candidates, D = 4, 24
+    distinct retentions) on the full-depth systolic subpartition
+    (5,592,576 lifetimes, 16 addresses), its output there held against the
+    plain version's; their ``launches`` are filled in from the compose and
+    sweep phases' main runs."""
     from repro_torch.kernels.compose_policy import kernel as k
     from repro_torch.sweep import DeviceGrid
     wide_grid = DeviceGrid(**SWEEP_WIDE_GRID)
+    inp = b7_inputs_of(torch, np, session, wide_grid, device)
+    sub = inp["sub"]
+    err_here = b7_check_at(torch, np, device, session, wide_grid, sub,
+                           "the wide grid, systolic")
+    ret, rf, wf, n_dev = inp["cands"]
+    C, D = ret.shape
+    R = len(inp["ret_u_host"])
+    if R > k.MAX_RETENTIONS:
+        raise AssertionError(f"the wide grid has {R} distinct retentions")
+    real = int(n_dev.sum())                    # real (candidate, device)
+    lt, rb, bits, seg, abits, arbits = inp["addr"]
+    L, A = int(lt.shape[0]), int(abits.shape[0])
+    rs, _ = k.policy_retention(inp["ret_u"], lt, bits, seg, A)
+    lib = k._launcher()
+    n_ranges = -(-L // lib.compose_policy_range_lifetimes())
+    n_blocks = -(-L // lib.compose_policy_candidate_block())
+    cand = (inp["ret_u"], inp["ridx"], rf, wf, n_dev)
+    slots = C * D * 20 + C * 4                 # rf, wf, ridx; n_dev
+    probes = math.ceil(math.log2(L + 1)) + math.ceil(math.log2(A + 1))
+    specs = {
+        # per real slot: two binary searches over the lifetimes and the
+        # addresses, four prefix reads; the candidates in, the energies
+        # and counts out
+        "compose_policy_rf": (
+            "refresh-free", B7_RF_REPLACES, k.policy_rf, k.policy_rf_plain,
+            (*inp["cands"], *inp["value"]),
+            real * (3 * 8 + 8 * (probes + 4)) + C * 4 + C * 8 + C * D * 8,
+            real * (2 * probes + 12)),
+        # each lifetime's lt, bits and segment id once, every retention's
+        # per-address sums out
+        "compose_policy_retention": (
+            "retention pass", B7_RA_REPLACES, k.policy_retention,
+            k.policy_retention_plain, (inp["ret_u"], lt, bits, seg, A),
+            L * 20 + R * 8 + R * A * 8, B7_OPS_RETENTION * R * L),
+        # lt, read bits, bits once, the candidates once, the partials out;
+        # the energy per real (c, d, l) and the recomputed refresh bits
+        "compose_policy_ra_grouped": (
+            "grouped candidate pass", B7_RA_REPLACES, k.policy_ra_grouped,
+            k.policy_ra_grouped_plain, (*cand, lt, rb, bits),
+            L * 24 + R * 8 + slots + C * n_blocks * 8,
+            B7_OPS_ENERGY * real * L + B7_OPS_REFRESH * R * L),
+        # the per-address sums and per-address bits once, counts out
+        "compose_policy_ra_decide": (
+            "decide", B7_RA_REPLACES, k.policy_ra_decide,
+            k.policy_ra_decide_plain,
+            (inp["ridx"], rf, wf, n_dev, rs, abits, arbits),
+            R * A * 8 + A * 16 + slots + C * D * 8,
+            B7_OPS_ENERGY * real * A),
+        # as the grouped pass, in the original order, plus the int8 picks
+        "compose_policy_ra_ungrouped": (
+            "ungrouped candidate pass", B7_UNGROUPED_REPLACES,
+            k.policy_ra_ungrouped, k.policy_ra_ungrouped_plain,
+            (*cand, *inp["orig"]),
+            L * 24 + R * 8 + slots + C * n_blocks * 8 + C * L,
+            B7_OPS_ENERGY * real * L + B7_OPS_REFRESH * R * L),
+    }
     rows = []
-    specs = (("compose_policy_rf", "refresh-free", k.policy_rf,
-              k.policy_rf_plain, B7_RF_REPLACES),
-             ("compose_policy_ra_grouped", "refresh-aware",
-              k.policy_ra_grouped, k.policy_ra_grouped_plain,
-              B7_RA_REPLACES),
-             ("compose_policy_ra_ungrouped", "ungrouped",
-              k.policy_ra_ungrouped, k.policy_ra_ungrouped_plain,
-              B7_UNGROUPED_REPLACES))
-    for name, policy, fn, plain, replaces in specs:
-        cands, arrays = b7_inputs_of(np, session, wide_grid, device, policy)
-        C, D = cands[0].shape
-        outs = {}
-        ms = statistics.median(cuda_ms(lambda: outs.__setitem__(
-            "kernel", fn(*cands, *arrays)), runs=10))
-        plain_ms = statistics.median(cuda_ms(lambda: outs.__setitem__(
-            "plain", plain(*cands, *arrays)), runs=3))
-        err_here = b7_compare(torch, outs["kernel"], outs["plain"],
-                              f"{name} at the wide grid")
-        L = int(arrays[0].shape[0])
-        real = int(cands[3].sum())             # real (candidate, device)
-        if policy == "refresh-free":
-            # per real slot: two binary searches over the lifetimes and
-            # the addresses, four prefix reads; the candidates in, the
-            # energies and counts out
-            A = int(arrays[3].shape[0])
-            probes = math.ceil(math.log2(L + 1)) + math.ceil(
-                math.log2(A + 1))
-            n_bytes = real * (3 * 8 + 8 * (probes + 4)) + C * 4 + C * 8 \
-                + C * D * 8
-            n_ops = real * (2 * probes + 12)
-            shape = {"lifetimes": L, "addresses": A}
-        else:
-            # each lifetime's lt, read bits, bits (and segment id) once, the
-            # candidates once, the outputs once; about 8 fp64 operations
-            # per real (candidate, device, lifetime)
-            n_bytes = L * 24 + real * 24 + C * 4 + C * D * 8
-            if policy == "refresh-aware":
-                A = int(arrays[4].shape[0])
-                n_bytes += L * 4 + A * 16
-                shape = {"lifetimes": L, "addresses": A}
-            else:
-                n_bytes += C * L
-                shape = {"lifetimes": L}
-            n_ops = 8 * real * L
+    for name, (what, replaces, fn, plain, args, n_bytes, n_ops) in \
+            specs.items():
+        ms = statistics.median(cuda_ms(lambda: fn(*args), runs=10))
+        plain_ms = statistics.median(cuda_ms(lambda: plain(*args), runs=3))
+        extra = {}
+        if name == "compose_policy_retention":
+            extra["floor_only_ms"] = statistics.median(cuda_ms(
+                lambda: fn(inp["ret_u"], lt, bits), runs=10))
+            extra["floor_only_bound"] = b7_bound(
+                L * 16 + R * 8 + R * n_ranges * 8, B7_OPS_FLOOR * R * L)
+        if name == "compose_policy_ra_grouped":
+            # the whole grouped call: retention pass, this, decide
+            extra["grouped_call_ms"] = statistics.median(cuda_ms(
+                lambda: b7_grouped_call(inp), runs=10))
+            extra["grouped_call_bound"] = b7_bound(
+                L * 28 + A * 16 + R * 8 + slots + C * D * 8,
+                B7_OPS_RETENTION * R * L + B7_OPS_ENERGY * real * (L + A)
+                + B7_OPS_REFRESH * R * L)
+        if name != "compose_policy_rf":
+            extra["old_bound_ms"] = (B7_OPS_OLD * real * L
+                                     / FP64_FLOPS_PER_S * 1e3)
         rows.append(kernel_row(
-            name, B7_SOURCE, replaces, None,
-            check["max_rel_err"], ms, plain_ms, n_bytes, n_ops,
-            FP64_FLOPS_PER_S, None,
+            name, B7_SOURCE, replaces, None, check["max_rel_err"], ms,
+            plain_ms, n_bytes, n_ops, FP64_FLOPS_PER_S, None,
             ms_shape={"candidates": C, "device_slots": D,
-                      "real_slots": real, **shape,
+                      "real_slots": real, "retentions": R, "lifetimes": L,
+                      "addresses": A,
                       "at": "the wide grid on the full-depth systolic "
-                            "subpartition"},
+                            f"subpartition {sub}"},
             max_abs_err_is="largest relative energy difference to the "
-                           "plain version in kernel_check (counts and "
-                           "picks exact)",
+                           "plain version in kernel_check (counts, picks, "
+                           "per-address sums and floor sums below 2**53 "
+                           "exact)",
             max_rel_err_at_ms_shape=err_here,
             launches_are="kernel calls in the main runs of the two "
-                         "full-depth compose steps (one a subpartition) "
-                         "and the two sweep phases (3 policies on the "
-                         "default grid on each full-depth session, plus "
-                         "one stats-only sweep each)",
-            library_call="none: no single PyTorch call computes it"))
+                         "full-depth compose steps (one refresh-free call "
+                         "and one retention pass a subpartition) and the "
+                         "two sweep phases (3 policies on the default grid "
+                         "on each full-depth session, plus one stats-only "
+                         "sweep each)",
+            library_call="none: no single PyTorch call computes it",
+            **extra))
     return rows
 
 
@@ -2381,11 +2614,10 @@ def phase_gpu(torch, np, device) -> dict:
         if counts != {"cache_replay": 2, "plain": 0, "scalar": 0}:
             raise AssertionError(f"gpu {key}: replays {counts}, expected two "
                                  "B6 launches and no plain or scalar call")
-        if b7 != {"rf": live_subpartitions(session), "ra_grouped": 0,
-                  "ra_ungrouped": 0, "plain": 0}:
+        if b7 != compose_b7_counts(session):
             raise AssertionError(f"gpu {key}: compose made B7 calls {b7}, "
-                                 "expected one refresh-free launch per "
-                                 "subpartition")
+                                 "expected one refresh-free launch and one "
+                                 "retention pass per subpartition")
         short = check_gpu_entry(np, session, session.report(), entry, key)
         runs[key] = {
             "events": {n: int((session.trace.subpartition == i).sum())
@@ -2552,6 +2784,11 @@ def main() -> int:
     b6_row = time_cache_replay(torch, np, device, gpu, b6_check)
     sweeps.append(phase_sweep(torch, np, device, f"gpu@{FULL_LAYERS}",
                               gpu["session"], two_layer_gpu))
+    # every B7 kernel against its plain version at the other skew: the
+    # wide grid on the GPU-cache session's largest subpartition
+    skew = b7_gpu_skew_check(torch, np, device, gpu["session"])
+    for row in b7_rows:
+        row["gpu_skew_check"] = skew
     composes.append(gpu["b7"])
     del gpu
     torch.cuda.empty_cache()

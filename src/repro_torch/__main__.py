@@ -16,9 +16,10 @@ Subcommands:
              CUDA device) and ``opstream``
   sweep      profile a workload, evaluate a grid of candidate device sets
              over every subpartition and print the Pareto frontiers (see
-             ``repro_torch.launch.sweep``: ``--engine torch`` runs the
-             policy kernels on the CUDA device, ``--dry-run`` a tiny
-             built-in workload)
+             ``repro_torch.launch.sweep``: the default engine, ``torch``,
+             runs the policy kernels and the monolithic baselines on the
+             CUDA device, ``--engine numpy`` the host oracle, ``--dry-run``
+             a tiny built-in workload)
   devices    list the registered device families (name, version,
              aliases, parameter schema)
 

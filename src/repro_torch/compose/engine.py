@@ -39,8 +39,12 @@ Engines: ``evaluate(..., engine="torch")`` (default; the reference's
 in :mod:`repro_torch.compose.executor` (imported lazily), which keeps the
 trace state resident on the torch device across calls (see
 :func:`sorted_trace_view`) and runs the hand-written policy kernels of
-``kernels/compose_policy`` there.  ``device=`` names that torch device
-(``None``: the CUDA device, raising without one).  ``engine="numpy"`` is
+``kernels/compose_policy`` there; the monolithic baselines' refresh bits
+come from the same kernels' retention pass, once per distinct retention
+and memoized with the trace view (the reference, and ``engine="numpy"``,
+run ``analyze_energy`` over the lifetimes per device).  ``device=``
+names that torch device (``None``: the CUDA device, raising without
+one).  ``engine="numpy"`` is
 the oracle: it runs the policy kernels and reductions here in NumPy,
 carries the bit-for-bit guarantee above and ignores ``device``.  The two
 agree bit-identically on capacity and to ~1e-9 relative energy
@@ -296,6 +300,19 @@ def _empty_composition(stats: SubpartitionStats, devs: list,
     )
 
 
+def _baseline_energy_j(stats: SubpartitionStats, device: DeviceModel,
+                       floor_bits: Mapping[float, float]) -> float:
+    """``analyze_energy(stats, device)[0]`` with the refresh bits taken from
+    ``floor_bits`` (retention -> ``sum(floor(lt / ret) * bits)``,
+    :func:`repro_torch.compose.executor.floor_refresh_bits`); an infinite
+    retention refreshes nothing."""
+    t_ret = device.retention_at(stats.write_freq_hz)
+    refresh = floor_bits[t_ret] if math.isfinite(t_ret) else 0.0
+    read_bits = stats.n_reads * stats.block_bits
+    write_bits = stats.n_writes * stats.block_bits
+    return device.op_energy_fj(read_bits, write_bits, refresh) * 1e-15
+
+
 def _numpy_candidate(asg, k: int, devs, reads, bits, w):
     """Energy + raw capacity fractions for candidate ``k`` of a chunk's
     policy assignment — the NumPy oracle's per-candidate reductions.
@@ -389,12 +406,19 @@ def evaluate(
     w = bits / bits.sum() if groups is None else None
 
     # Monolithic baselines depend on (stats, device); memoized by device
-    # — SRAM is shared by every candidate, scale variants recur.
+    # — SRAM is shared by every candidate, scale variants recur.  The
+    # torch engine takes each device's refresh bits from the retention
+    # pass on the card (``floor_bits``, set below), the oracle from
+    # ``analyze_energy``'s pass over the lifetimes.
     mono_cache: dict = {}
+    floor_bits = None
 
     def mono_energy(d: DeviceModel) -> float:
         if d not in mono_cache:
-            mono_cache[d] = analyze_energy(stats, d)[0]
+            if floor_bits is None:
+                mono_cache[d] = analyze_energy(stats, d)[0]
+            else:
+                mono_cache[d] = _baseline_energy_j(stats, d, floor_bits)
         return mono_cache[d]
 
     n_dev = np.array([len(ds) for ds in sorted_devs])
@@ -426,6 +450,7 @@ def evaluate(
             write_fj=write_fj, pad=pad, fallback=fallback,
             lt_s=lt, reads=reads, bits=bits, groups=groups)
         e_all, f_all = executor.run_batch(pol, full, view, device)
+        floor_bits = executor.floor_refresh_bits(full, view, device)
 
     chunk = max(1, _MAX_BROADCAST_BYTES
                 // max(1, d_max * len(lt) * pol.broadcast_itemsize))

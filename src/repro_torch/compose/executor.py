@@ -15,21 +15,34 @@ with the hand-written policy kernels of ``kernels/compose_policy`` (B7):
   (refresh-aware, taken once on the host in a fixed order), and the
   original-order arrays (refresh-aware without addresses).
 
-* **One launch per policy call** — the kernels take runtime extents, so
-  there are no shape buckets, no padding of ``L``/``A``/``D``/``C`` and no
-  compile per shape (the reference's pow2 buckets exist because its
-  jitted kernels need fixed shapes).  The only slab left bounds the
-  ``[C, L]`` int8 picks of the ungrouped refresh-aware kernel, which come
-  back to the host.
+* **Refresh work once per distinct retention** — a refresh-aware call
+  indexes the batch's distinct finite retentions (``ops.retention_index``)
+  and runs the retention pass over them, then the candidate pass (and, with
+  address groups, the decision per address).  The kernels take runtime
+  extents, so there are no shape buckets, no padding of ``L``/``A``/``D``/
+  ``C`` and no compile per shape (the reference's pow2 buckets exist
+  because its jitted kernels need fixed shapes).  Two candidate splits
+  are left: a slab bounds the ``[C, L]`` int8 picks of the ungrouped
+  refresh-aware kernel, which come back to the host, and a candidate pass
+  takes at most ``MAX_RETENTIONS`` distinct retentions
+  (``ops.retention_groups``).
+
+* **Monolithic baselines on the card** — :func:`floor_refresh_bits` gives
+  each distinct retention's Algorithm-1 refresh bits
+  ``sum(floor(lt / ret) * bits)`` from the retention pass without address
+  groups, memoized in the residence by retention, so they live as long as
+  the trace view.  The engine bills each device's baseline from them on
+  the host; no pass over the lifetimes is left there.  The sums run in the
+  kernel's fixed order, not NumPy's pairwise one (ROADMAP D28).
 
 Knife-edge reductions (capacity count division, bits-weighted fractions)
 finish on the host exactly as the reference's executor does, keeping
 capacity fractions — and therefore bank quantization — bit-identical to
 the NumPy oracle; energy agrees within 1e-9 relative.
 
-Thread safety: the residence memo and each residence's lazy uploads are
-guarded by locks; calls allocate their own outputs, so a thread-parallel
-sweep gives the serial sweep's results bit for bit.
+Thread safety: the residence memo and each residence's lazy uploads and
+floor sums are guarded by locks; calls allocate their own outputs, so a
+thread-parallel sweep gives the serial sweep's results bit for bit.
 """
 
 from __future__ import annotations
@@ -60,10 +73,12 @@ class TraceResidence:
         self.device = torch.device(device)
         self.n_lt = int(view.n_lt)
         self.n_addr = int(view.n_addr)
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self._value = None   # (lt_sorted, prefix_bits, prefix_rb, maxlt)
+        self._addr_lt = None  # (lt, bits) address-sorted
         self._addr = None    # (lt, read_bits, bits, seg, a_bits, a_rbits)
         self._orig = None    # (lt, read_bits, bits) original order
+        self._floor = {}     # retention (s) -> floor refresh bits
 
     def _put(self, a, dtype=_F64):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
@@ -82,20 +97,28 @@ class TraceResidence:
                     view.prefix_read_bits, ml))
             return self._value
 
+    def addr_lifetimes(self, view):
+        """Address-sorted lifetimes and bits (all a floor sum reads)."""
+        with self._lock:
+            if self._addr_lt is None:
+                self._addr_lt = (self._put(view.lt_addr),
+                                 self._put(view.bits_addr))
+            return self._addr_lt
+
     def addr_sorted(self, view):
         """Address-sorted lifetimes, read bits (reads * bits), bits and
         int32 segment ids, plus the per-address sums of bits and read
         bits, each summed in address order on the host."""
         with self._lock:
             if self._addr is None:
+                lt, bits = self.addr_lifetimes(view)
                 rb = view.reads_addr * view.bits_addr
                 seg = view.seg
                 starts = np.flatnonzero(
                     np.concatenate([[True], seg[1:] != seg[:-1]]))
                 a_bits = np.add.reduceat(view.bits_addr, starts)
                 a_rbits = np.add.reduceat(rb, starts)
-                self._addr = (self._put(view.lt_addr), self._put(rb),
-                              self._put(view.bits_addr),
+                self._addr = (lt, self._put(rb), bits,
                               self._put(seg, np.int32), self._put(a_bits),
                               self._put(a_rbits))
             return self._addr
@@ -111,6 +134,25 @@ class TraceResidence:
                 self._orig = (self._put(lt), self._put(reads * bits),
                               self._put(bits))
             return self._orig
+
+    def floor_bits(self, view, batch, ret_u) -> dict:
+        """``{retention: sum(floor(lt / ret) * bits)}`` for the distinct
+        retentions ``ret_u``, computed on the card for those not yet held:
+        over the address-sorted lifetimes when the view has addresses,
+        else over the original order."""
+        with self._lock:
+            keys = [float(r) for r in ret_u]
+            missing = [r for r in keys if r not in self._floor]
+            if missing:
+                if self.n_addr > 0:
+                    lt, bits = self.addr_lifetimes(view)
+                else:
+                    lt, _, bits = self.original(batch.lt_s, batch.reads,
+                                                batch.bits)
+                floor = ops.floor_refresh_bits(np.asarray(missing, _F64),
+                                               lt, bits)
+                self._floor.update(zip(missing, floor.tolist()))
+            return {r: self._floor[r] for r in keys}
 
 
 # (id(view), device) -> (weakref(view), residence); the weakref guards id
@@ -166,9 +208,10 @@ def evaluate_resident(base, batch, view, res: TraceResidence):
             # bit-identical to the oracle's bincount / A
             return energy, counts / view.n_addr
         return energy, _rf_ungrouped_host_fracs(batch, d_max)
+    ret_u, ridx = ops.retention_index(batch.ret_s, batch.pad)
     if grouped:
-        energy, counts = ops.refresh_aware_grouped(cands,
-                                                   *res.addr_sorted(view))
+        energy, counts = ops.refresh_aware_grouped(
+            cands, ret_u, ridx, *res.addr_sorted(view))
         return energy, counts / view.n_addr
     lt_o, rb_o, bits_o = res.original(batch.lt_s, batch.reads, batch.bits)
     bits_host = np.asarray(batch.bits, _F64)
@@ -178,7 +221,8 @@ def evaluate_resident(base, batch, view, res: TraceResidence):
     for lo in range(0, C, slab):
         hi = min(lo + slab, C)
         e, picks = ops.refresh_aware_ungrouped(
-            tuple(x[lo:hi] for x in cands), lt_o, rb_o, bits_o)
+            tuple(x[lo:hi] for x in cands), ret_u, ridx[lo:hi], lt_o, rb_o,
+            bits_o)
         energy[lo:hi] = e
         frac[lo:hi] = _host_weighted_fracs(picks, bits_host, d_max)
     return energy, frac
@@ -202,3 +246,15 @@ def run_batch(pol, batch, view, device=None):
             f"{base.name!r}; use engine='numpy'")
     res = _residence_for(view, resolve_device(device))
     return evaluate_resident(base, batch, view, res)
+
+
+def floor_refresh_bits(batch, view, device=None) -> dict:
+    """``{retention (s): sum(floor(lt / ret) * bits)}`` for every finite
+    retention of ``batch``'s real device slots: the monolithic baselines'
+    refresh bits (Algorithm 1's ``AnalyzeRefresh``), from the retention
+    pass on ``device``, memoized with the residence of ``view``.  A
+    retention's float value is its key: for the positive finite retentions
+    it names the same values as the index's bit patterns."""
+    res = _residence_for(view, resolve_device(device))
+    ret_u, _ = ops.retention_index(batch.ret_s, batch.pad)
+    return res.floor_bits(view, batch, ret_u)

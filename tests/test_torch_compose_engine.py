@@ -31,7 +31,9 @@ from repro.core.frontend import SubpartitionStats as RefStats
 from repro.devices import get_device_family as ref_family
 from repro.sweep import DeviceGrid as RefGrid
 from repro_torch.compose import evaluate
-from repro_torch.compose.policies import AssignmentPolicy
+from repro_torch.compose.policies import (AssignmentPolicy,
+                                          RefreshAwarePolicy, get_policy)
+from repro_torch.compose.torch_engine import _base_policy
 from repro_torch.core import compose, compute_stats, lifetimes_of_trace
 from repro_torch.core import make_trace
 from repro_torch.core.frontend import SubpartitionStats
@@ -97,6 +99,14 @@ def _assert_contract(want, got, what):
         assert a.quantization == b.quantization, what
         assert a.devices == b.devices, what
         assert a.policy == b.policy, what
+        # the baselines: the torch engine sums Algorithm 1's refresh bits on
+        # the retention pass, in another order than NumPy (ROADMAP D28)
+        assert sorted(a.monolithic_energy_j) == sorted(b.monolithic_energy_j)
+        for name, e in a.monolithic_energy_j.items():
+            assert abs(e - b.monolithic_energy_j[name]) <= 1e-9 * abs(e), \
+                (what, name)
+        assert abs(a.energy_vs_sram - b.energy_vs_sram) <= \
+            1e-9 * abs(a.energy_vs_sram), what
 
 
 def _plain_calls():
@@ -194,6 +204,45 @@ def test_torch_matches_numpy_asymmetric_sot_mram():
     for policy in POLICIES:
         _assert_engines_agree(([ref_asym, ref_asym], [port_asym, port_asym]),
                               (ref_stats, port_stats), raw, policy)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("grouped", [True, False])
+def test_torch_baselines_come_from_the_retention_pass(policy, grouped,
+                                                      monkeypatch):
+    """The torch engine makes no ``analyze_energy`` call: each distinct
+    retention's floor sum comes from one retention pass without address
+    groups, is memoized with the trace view's residence, and bills every
+    device of that retention."""
+    from repro_torch.compose import engine as ce
+    ref_stats, port_stats, raw = _synthetic(n=1500, seed=8, n_addr=53)
+    raw = raw if grouped else None
+    ref_cands, cands = _grid_candidates(area_scales=(0.5, 1.0),
+                                        energy_scales=(0.5, 2.0))
+    want = ref_evaluate(ref_cands, ref_stats, raw=raw, clock_hz=CLOCK_HZ,
+                        policy=policy)
+    calls = []
+    real = ce.analyze_energy
+    monkeypatch.setattr(ce, "analyze_energy",
+                        lambda *a: calls.append(a) or real(*a))
+    numpy_out = evaluate(cands, port_stats, raw=raw, clock_hz=CLOCK_HZ,
+                         policy=policy, engine="numpy")
+    assert calls              # the oracle's baselines pass over lifetimes
+    del calls[:]
+    passes = policy_kernel.policy_retention_plain.calls
+    for _ in range(2):
+        got = evaluate(cands, port_stats, raw=raw, clock_hz=CLOCK_HZ,
+                       policy=policy, engine="torch", device="cpu")
+        _assert_contract(want, got, f"{policy} vs reference numpy")
+        _assert_contract(numpy_out, got, f"{policy} vs port numpy")
+    assert calls == []
+    # one floor pass on the first call; the second call finds the floor
+    # sums in the memo; a grouped refresh-aware call also makes a pass for
+    # its per-address sums each time
+    base = _base_policy(get_policy(policy))
+    grouped_ra = grouped and isinstance(base, RefreshAwarePolicy)
+    assert policy_kernel.policy_retention_plain.calls == passes + 1 + (
+        2 if grouped_ra else 0)
 
 
 def test_torch_engine_validation():

@@ -519,6 +519,43 @@ def _b7_inputs(seg_len, C, D, seed, device):
     return cands, value, addr
 
 
+def _b7_runs(cands, value, addr):
+    """(wrapper, plain, args) of every B7 kernel on one input: the
+    refresh-free kernel, the retention pass with and without address
+    groups, the two candidate passes and the decision per address."""
+    from repro_torch.kernels.compose_policy import kernel as k
+    from repro_torch.kernels.compose_policy import ops
+    ret, rf, wf, n_dev = cands
+    C, D = ret.shape
+    pad = np.arange(D)[None, :] >= n_dev.cpu().numpy()[:, None]
+    ret_u, ridx = ops.retention_index(ret.cpu().numpy(), pad)
+    dev = ret.device
+    ret_u = torch.from_numpy(ret_u).to(dev)
+    ridx = torch.from_numpy(ridx).to(dev)
+    lt, rb, bits, seg, abits, arbits = addr
+    A = abits.shape[0]
+    rs, _ = k.policy_retention_plain(ret_u, lt, bits, seg, A)
+    # a candidate pass takes up to MAX_RETENTIONS rows: the first group
+    lo, hi, rows = ops.retention_groups(ridx.cpu().numpy(), len(ret_u))[0]
+    u, r = ops._local_index(ret_u.cpu().numpy(), ridx.cpu().numpy(), lo, hi,
+                            rows)
+    cand = (torch.from_numpy(u).to(dev), torch.from_numpy(r).to(dev),
+            rf[lo:hi], wf[lo:hi], n_dev[lo:hi], lt, rb, bits)
+    # each output: compared exactly, or (energy, floor partials) summed
+    # per row within 1e-12
+    return [(k.policy_rf, k.policy_rf_plain, (*cands, *value),
+             ("sum", "exact")),
+            (k.policy_retention, k.policy_retention_plain,
+             (ret_u, lt, bits, seg, A), ("exact", "sum")),
+            (k.policy_retention, k.policy_retention_plain,
+             (ret_u, lt, bits), ("exact", "sum")),
+            (k.policy_ra_grouped, k.policy_ra_grouped_plain, cand, ("sum",)),
+            (k.policy_ra_ungrouped, k.policy_ra_ungrouped_plain, cand,
+             ("sum", "exact")),
+            (k.policy_ra_decide, k.policy_ra_decide_plain,
+             (ridx, rf, wf, n_dev, rs, abits, arbits), ("exact",))]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("seg_len,C,D", [
     ([1] * 20_000, 7, 3),                       # one lifetime per address
@@ -527,27 +564,51 @@ def _b7_inputs(seg_len, C, D, seed, device):
     (list(np.random.RandomState(1).geometric(0.1, 3000)), 33, 9),
 ])
 def test_compose_policy_kernels_match_plain(cuda, seg_len, C, D):
-    """B7: counts and picks exactly, energy within 1e-12 relative of the
-    plain version, two runs bit-equal, one launch per call."""
-    from repro_torch.kernels.compose_policy import kernel as k
+    """B7: counts, picks and per-address refresh sums exactly, energy and
+    floor sums within 1e-12 relative of the plain version, two runs
+    bit-equal, one launch per call."""
     cands, value, addr = _b7_inputs(seg_len, C, D, len(seg_len), cuda)
-    for fn, plain, arrays in ((k.policy_rf, k.policy_rf_plain, value),
-                              (k.policy_ra_grouped,
-                               k.policy_ra_grouped_plain, addr),
-                              (k.policy_ra_ungrouped,
-                               k.policy_ra_ungrouped_plain, addr[:3])):
+    for fn, plain, args, kinds in _b7_runs(cands, value, addr):
         before = fn.launches
-        got = fn(*cands, *arrays)
-        again = fn(*cands, *arrays)
+        got = fn(*args)
+        again = fn(*args)
         torch.cuda.synchronize()
         assert fn.launches == before + 2
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
-        want = plain(*cands, *arrays)
-        assert torch.equal(got[1], want[1])
-        torch.testing.assert_close(got[0].sum(dim=-1) if got[0].dim() > 1
-                                   else got[0], want[0].sum(dim=-1)
-                                   if want[0].dim() > 1 else want[0],
-                                   rtol=1e-12, atol=0)
+        want = plain(*args)
+        if isinstance(got, torch.Tensor):
+            got, again, want = (got,), (again,), (want,)
+        for g, a, w, kind in zip(got, again, want, kinds):
+            if w is None:
+                assert g is None and a is None
+                continue
+            assert torch.equal(g, a)                 # run to run
+            if kind == "exact":       # counts, picks, per-address sums
+                assert torch.equal(g, w)
+            else:                     # per-block partials, summed per row
+                torch.testing.assert_close(
+                    g.sum(dim=-1) if g.dim() > 1 else g,
+                    w.sum(dim=-1) if w.dim() > 1 else w, rtol=1e-12, atol=0)
+    # the host-facing entry points, retention groups and all
+    from repro_torch.kernels.compose_policy import ops
+    ret, n_dev = cands[0], cands[3]
+    pad = np.arange(D)[None, :] >= n_dev.cpu().numpy()[:, None]
+    ret_u, ridx = ops.retention_index(ret.cpu().numpy(), pad)
+    cpu = tuple(x.cpu() for x in cands)
+    got = ops.refresh_aware_ungrouped(cands, ret_u, ridx, *addr[:3])
+    want = ops.refresh_aware_ungrouped(cpu, ret_u, ridx,
+                                       *(x.cpu() for x in addr[:3]))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, atol=0)
+    got = ops.refresh_aware_grouped(cands, ret_u, ridx, *addr)
+    want = ops.refresh_aware_grouped(cpu, ret_u, ridx,
+                                     *(x.cpu() for x in addr))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12, atol=0)
+    lt, bits = addr[0], addr[2]
+    np.testing.assert_allclose(
+        ops.floor_refresh_bits(ret_u, lt, bits),
+        ops.floor_refresh_bits(ret_u, lt.cpu(), bits.cpu()), rtol=1e-12,
+        atol=0)
 
 
 @pytest.mark.gpu
@@ -572,16 +633,20 @@ def test_compose_policy_limits_and_torch_engine_on_the_card(cuda):
               rows=32, cols=32).analyze()
     grid = DeviceGrid(mixes=(0.0, 0.5, 1.0), retention_scales=(0.5, 1, 2))
     for policy in ("refresh-free", "refresh-aware", "bank-quantized"):
-        plain = (k.policy_rf_plain.calls, k.policy_ra_grouped_plain.calls)
+        plain = [f.calls for f in k.PLAIN]
         launches = k.policy_rf.launches + k.policy_ra_grouped.launches
         got = s.sweep(grid, policy=policy).points
         assert k.policy_rf.launches + k.policy_ra_grouped.launches == \
             launches + 3
-        assert (k.policy_rf_plain.calls,
-                k.policy_ra_grouped_plain.calls) == plain
+        assert [f.calls for f in k.PLAIN] == plain
         want = s.sweep(grid, policy=policy, engine="numpy").points
         for a, b in zip(got, want):
-            assert np.array_equal(a.composition.capacity_fractions,
-                                  b.composition.capacity_fractions)
-            assert a.composition.energy_j == pytest.approx(
-                b.composition.energy_j, rel=1e-9, abs=0)
+            ca, cb = a.composition, b.composition
+            assert np.array_equal(ca.capacity_fractions,
+                                  cb.capacity_fractions)
+            assert ca.energy_j == pytest.approx(cb.energy_j, rel=1e-9, abs=0)
+            assert ca.energy_vs_sram == pytest.approx(cb.energy_vs_sram,
+                                                      rel=1e-9, abs=0)
+            for name, e in cb.monolithic_energy_j.items():
+                assert ca.monolithic_energy_j[name] == pytest.approx(
+                    e, rel=1e-9, abs=0)

@@ -312,8 +312,9 @@ def test_build_module_names_its_library_by_source_hash():
                                        "flash_attention_bwd_dkv"],
                "cache_replay": ["cache_replay"],
                "compose_policy": ["compose_policy_rf",
-                                  "compose_policy_ra_grouped",
-                                  "compose_policy_ra_ungrouped"]}
+                                  "compose_policy_retention",
+                                  "compose_policy_ra_candidates",
+                                  "compose_policy_ra_decide"]}
     for name, fns in entries.items():
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         for fn in fns:

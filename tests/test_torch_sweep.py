@@ -335,6 +335,61 @@ def test_pareto_counts(sweep_points):
 # session integration, parallelism, exports
 # ---------------------------------------------------------------------------
 
+# the 73-candidate grid (289 real device slots, 24 distinct retentions)
+WIDE_73 = dict(mixes=(0.0, 0.5, 1.0),
+               retention_scales=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0),
+               area_scales=(0.5, 1.0, 2.0), energy_scales=(0.5, 1.0, 2.0))
+
+
+@pytest.mark.parametrize("policy", ["refresh-free", "refresh-aware",
+                                    "bank-quantized"])
+def test_wide_grid_baselines_come_from_the_retention_pass(
+        sessions, policy, monkeypatch):
+    """On the 2-layer sessions at the 73-candidate grid, the torch engine
+    bills every monolithic baseline from the retention pass's floor sums,
+    with no ``analyze_energy`` pass over the lifetimes: baselines and
+    ``energy_vs_sram`` within 1e-9 of ``engine="numpy"`` and of the
+    reference's engine (ROADMAP D28)."""
+    from repro_torch.compose import engine as ce
+    from repro_torch.core import frontend
+    ref_s, s = sessions
+    want_ref = ref_s.sweep(RefGrid(**WIDE_73), policy=policy,
+                           attach=False).points
+    want = s.sweep(DeviceGrid(**WIDE_73), policy=policy, engine="numpy",
+                   attach=False).points
+    calls = []
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(ce, "analyze_energy", counted(ce.analyze_energy))
+    monkeypatch.setattr(frontend, "analyze_energy",
+                        counted(frontend.analyze_energy))
+    monkeypatch.setattr(frontend, "analyze_refresh",
+                        counted(frontend.analyze_refresh))
+    got = s.sweep(DeviceGrid(**WIDE_73), policy=policy, engine="torch",
+                  attach=False).points
+    assert calls == []
+    assert len(got) == len(want) == len(want_ref) == 3 * 73
+    for g, n, r in zip(got, want, want_ref):
+        assert (g.candidate, g.subpartition) == (r.candidate, r.subpartition)
+        gc_, nc_, rc_ = g.composition, n.composition, r.composition
+        assert sorted(gc_.monolithic_energy_j) == \
+            sorted(rc_.monolithic_energy_j)
+        for name, e in gc_.monolithic_energy_j.items():
+            for other in (nc_, rc_):
+                w = other.monolithic_energy_j[name]
+                assert abs(e - w) <= 1e-9 * abs(w), (g.candidate, name)
+        for other in (nc_, rc_):
+            assert abs(gc_.energy_vs_sram - other.energy_vs_sram) <= \
+                1e-9 * abs(other.energy_vs_sram)
+        assert np.array_equal(gc_.capacity_fractions,
+                              rc_.capacity_fractions)
+
+
 @pytest.mark.parametrize("engine", ["numpy", "torch"])
 def test_session_sweep_attaches_the_reference_frontiers(sessions, engine):
     ref_s, s = sessions
