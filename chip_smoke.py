@@ -16,7 +16,8 @@ version on the card, and drives the port's two paths:
 * GPU-cache profiling: ``ProfileSession("gpu")`` -> analyze -> compose on
   TinyLlama-1.1B's op stream at full width and depth (22 layers, seq 128,
   line sampling 8) and on every ``mlperf`` workload, the L1 and L2 replays
-  on the card by the ``cache_replay`` kernel (two launches per run) and the
+  on the card by the ``cache_replay`` kernels (two wrapper calls per run,
+  each the split replay's three CUDA launches under write-allocate) and the
   composition by B7 (one launch per subpartition), each run held against
   ``golden_gpu_cachesim.json`` written from the JAX reference (trace
   digests, counts, histograms, capacity fractions);
@@ -46,17 +47,18 @@ version on the card, and drives the port's two paths:
 It times each kernel at the shapes its path gives it: the lifetime scan
 right after the profiling path (also on one segment that crosses every
 range of the kernel and on a random trace of the same length), the cache
-replay right after the GPU-cache path (at its L1 and L2 shapes and on a
-1 M-event mixed stream), the policy kernels after the sweep (at the
-73-candidate grid on the full-depth systolic subpartition), the others
-after training.
+replay right after the GPU-cache path (at its L1 and L2 shapes, on a
+1 M-event mixed stream and on 1 M accesses in one set), the policy kernels
+after the sweep (at the 73-candidate grid on the full-depth systolic
+subpartition), the others after training.
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
 phase (``device``, ``build`` with each kernel's registers, spills and
 tensor-core instructions in its SASS, ``kernel_check`` per kernel (the
 lifetime scan's on random and structured streams, the cache replay's on
-random, skewed, empty, near-2^59 and mixed streams, the policy kernels' on
-random grids and address structures), ``cli``, ``full``, ``sweep`` of the
+random, skewed, empty, near-2^59 and mixed streams, set counts at S - 1, S
+and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
+and address structures), ``cli``, ``full``, ``sweep`` of the
 systolic session, ``gpu``, ``sweep`` of the GPU-cache session, ``golden``,
 ``serve``, ``train_golden``, ``train``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -117,6 +119,15 @@ GPU_MAIN = "tinyllama_1_1b@22"
 B6_WAYS = (1, 2, 3, 4, 8, 16, 32)
 B6_SETS = (1, 8, 128, 2048, 4096)
 B6_MAX_SLOTS = 2000
+# B6's kernels by name in a profiler trace: the split replay's three
+# (write-allocate) and the per-set chain (no-write-allocate)
+B6_SPLIT_KERNELS = ("split_summary_kernel", "split_replay_kernel",
+                    "split_resolve_kernel")
+B6_CHAIN_KERNEL = "cache_replay_kernel"
+PROFILED_KERNELS = ("lifetime_scan_kernel", *B6_SPLIT_KERNELS,
+                    B6_CHAIN_KERNEL)
+# B6's one-set case: 1 M accesses over 64 lines of one of 128 sets
+B6_ONE_SET = {"n": 1_000_000, "lines": 64, "n_sets": 128, "ways": 8}
 # the 1 M-event stream of benchmarks/cachesim_bench.py (_mixed_stream)
 # B7 (compose_policy) against its plain version on the card
 B7_ENERGY_RTOL = 1e-15
@@ -1515,8 +1526,9 @@ def device_kernels_per_call(torch, fn, calls: int) -> dict:
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.name
-        if "lifetime_scan_kernel" in name:      # the mangled signature
-            name = "lifetime_scan_kernel"
+        for short in PROFILED_KERNELS:          # the mangled signature
+            if short in name:
+                name = short
         n, us = out.get(name, (0, 0.0))
         out[name] = (n + 1, us + ev.time_range.elapsed_us())
     return {k: {"launches": n / calls, "device_us": us / calls}
@@ -1534,21 +1546,37 @@ print(json.dumps(cs.device_kernels_per_call(
     torch, lambda: k.lifetime_scan_sorted(t, a, w, e), calls=10)))
 """
 
+# run by a fresh interpreter: argv[1] holds B6's inputs at a level, argv[2]
+# its ways; both write policies (each picks its own kernels)
+PROFILE_B6 = """
+import json, sys
+import torch
+import chip_smoke as cs
+from repro_torch.kernels.cache_replay import kernel as k
+p, o, c = (x.cuda() for x in torch.load(sys.argv[1]))
+ways = int(sys.argv[2])
+print(json.dumps({policy: cs.device_kernels_per_call(
+    torch, lambda wa=wa: k.cache_replay_sorted(p, o, c, ways, wa), calls=10)
+    for policy, wa in (("write_allocate", True),
+                       ("no_write_allocate", False))}))
+"""
 
-def profile_lifetime_scan(torch, t, a, w, edges) -> dict:
-    """``device_kernels_per_call`` of K1 on these inputs, traced in a fresh
-    interpreter: on the H100, ``torch.profiler`` (CUPTI) ended this process
-    with a segmentation fault when started after the serving and training
-    phases."""
-    path = ROOT / "build" / "chip_smoke_k1_inputs.pt"
-    torch.save(tuple(x.cpu() for x in (t, a, w, edges)), path)
+
+def profile_fresh(torch, script, tensors, *args) -> dict:
+    """The JSON that ``script`` prints, run by a fresh interpreter on
+    ``tensors`` (saved to a file, argv[1]) and ``args``: on the H100,
+    ``torch.profiler`` (CUPTI) ended this process with a segmentation fault
+    when started after the serving and training phases."""
+    path = ROOT / "build" / "chip_smoke_profile_inputs.pt"
+    torch.save(tuple(x.cpu() for x in tensors), path)
     try:
-        proc = subprocess.run([sys.executable, "-c", PROFILE_K1, str(path)],
-                              cwd=ROOT, capture_output=True, text=True)
+        proc = subprocess.run(
+            [sys.executable, "-c", script, str(path), *map(str, args)],
+            cwd=ROOT, capture_output=True, text=True)
     finally:
         path.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"K1's profile run exited {proc.returncode}:\n"
+        raise RuntimeError(f"a profile run exited {proc.returncode}:\n"
                            f"{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -1583,7 +1611,7 @@ def time_lifetime_scan(torch, full, check) -> dict:
     back_to_back_ms = start.elapsed_time(stop) / 50
     plain_ms = statistics.median(cuda_ms(
         lambda: k.lifetime_scan_plain(t, a, w, edges), runs=5))
-    per_call = profile_lifetime_scan(torch, t, a, w, edges)
+    per_call = profile_fresh(torch, PROFILE_K1, (t, a, w, edges))
     hist, stats = call()
     n_segments = int(stats[0] + stats[1])
     live = int(stats[0])
@@ -1646,15 +1674,62 @@ def b6_layout(torch, lines, w, n_sets):
     return (lines * 2 + w.to(torch.int64))[order], offsets, counts
 
 
+def longest_piece(np, offsets, counts, S) -> int:
+    """The longest run of one set inside one chunk of S accesses of the
+    set-sorted layout: the split replay's chain."""
+    o, c = offsets.cpu().numpy(), counts.cpu().numpy()
+    o, c = o[c > 0], c[c > 0]
+    first = np.minimum(c, S - o % S)            # up to the first chunk edge
+    last = np.where(c > first, (o + c - 1) % S + 1, 0)
+    middle = np.where(c - first - last > 0, S, 0)
+    return int(max(first.max(), last.max(), middle.max())) if len(c) else 0
+
+
+def lru_one_set(lines, w, ways, wa) -> list:
+    """Result words of one set's stream by a plain LRU on the host (an
+    ordered dict of line -> dirty, least recent first)."""
+    from collections import OrderedDict
+    state, out = OrderedDict(), []
+    for a, write in zip(lines, w):
+        if a in state:
+            state.move_to_end(a)
+            state[a] |= write
+            out.append(1)
+        elif not wa and write:
+            out.append(0)                        # no-write-allocate miss
+        else:
+            evict, dirty = (state.popitem(last=False)
+                            if len(state) == ways else (-1, False))
+            state[a] = write
+            out.append(((evict + 1) << 3) | (int(dirty) << 2) | 2)
+    return out
+
+
+def b6_counts_stream(torch, per_set, n_sets, ways, g, device):
+    """A stream whose set s has exactly per_set[s] accesses over 3 * ways
+    lines, in a random order."""
+    per_set = torch.tensor(per_set, device=device)
+    n = int(per_set.sum())
+    sets = torch.repeat_interleave(torch.arange(n_sets, device=device),
+                                   per_set)
+    sets = sets[torch.randperm(n, generator=g, device=device)]
+    tags = torch.randint(0, 3 * ways, (n,), generator=g, device=device)
+    return (sets + n_sets * tags,
+            torch.rand(n, generator=g, device=device) < 0.35)
+
+
 def phase_cache_replay_check(torch, np, device) -> dict:
     """B6 against its plain version on the card, bit for bit, and against
     itself on a second run: random streams over n_sets 1 to 4096 and ways
     1 to 32 under both write policies, a stream in one set, an empty
-    stream, line addresses near 2^59 - 1, and the 1 M-event mixed
-    stream."""
+    stream, line addresses near 2^59 - 1, the 1 M-event mixed stream,
+    streams whose sets hold S - 1, S and S + 1 accesses (S the split
+    replay's chunk length), and 1 M accesses in one set (its first
+    B6_MAX_SLOTS words against the plain version on that prefix, all of
+    them against a plain LRU on the host)."""
     from repro_torch.kernels.cache_replay import kernel as k
 
-    def check(lines, w, n_sets, ways, wa, what):
+    def run(lines, w, n_sets, ways, wa, what):
         packed, offsets, counts = b6_layout(torch, lines, w, n_sets)
         before = k.cache_replay_sorted.launches
         got = k.cache_replay_sorted(packed, offsets, counts, ways, wa)
@@ -1663,21 +1738,36 @@ def phase_cache_replay_check(torch, np, device) -> dict:
         n = packed.shape[0]
         if k.cache_replay_sorted.launches != before + 2 * (n > 0):
             raise AssertionError(f"cache_replay {what}: the wrapper did not "
-                                 f"launch once per call")
+                                 f"count one launch per call")
         if not torch.equal(got, again):
             raise AssertionError(f"cache_replay {what}: two runs differ")
-        want = k.cache_replay_plain(packed, offsets, counts, ways, wa)
+        if not n:
+            chain = 0
+        elif wa:            # the split replay: the longest piece
+            chain = longest_piece(np, offsets, counts,
+                                  k.split_plan(n, ways, device)[0])
+        else:               # the per-set chain: the longest set
+            chain = int(counts.max())
+        return (packed, offsets, counts, got,
+                {"events": n, "chain_steps": chain,
+                 "hits": int((got & 1).sum())})
+
+    def same(got, want, what):
         if not torch.equal(got, want):
             bad = int((got != want).nonzero()[0])
             raise AssertionError(
                 f"cache_replay {what}: kernel != plain version at sorted "
                 f"position {bad}: {int(got[bad])} vs {int(want[bad])}")
-        hits = int((got & 1).sum())
-        return {"events": n, "chain_steps": int(counts.max()) if n else 0,
-                "hits": hits}
+
+    def check(lines, w, n_sets, ways, wa, what):
+        packed, offsets, counts, got, r = run(lines, w, n_sets, ways, wa,
+                                              what)
+        same(got, k.cache_replay_plain(packed, offsets, counts, ways, wa),
+             what)
+        return r
 
     g = torch.Generator(device=device).manual_seed(600)
-    cases, detail = 0, []
+    cases = 0
     for ways in B6_WAYS:
         for n_sets in B6_SETS:
             n = min(B6_MAX_SLOTS * n_sets // 2, 500_000)
@@ -1698,16 +1788,62 @@ def phase_cache_replay_check(torch, np, device) -> dict:
     top = 2 ** 59 - 1 - torch.randint(0, 3 * 64 * 4, (50_000,), generator=g,
                                       device=device)
     e = torch.zeros(0, dtype=torch.int64, device=device)
-    for name, args in (("one_set", (lines * 128, w, 128, 8)),
-                       ("empty", (e, e.bool(), 128, 8)),
-                       ("near_2^59", (top, w.repeat(13)[:50_000], 64, 4)),
-                       ("mixed_1M", (mixed_l, mixed_w, 128, 8))):
+    named = [("one_set", (lines * 128, w, 128, 8)),
+             ("empty", (e, e.bool(), 128, 8)),
+             ("near_2^59", (top, w.repeat(13)[:50_000], 64, 4)),
+             ("mixed_1M", (mixed_l, mixed_w, 128, 8))]
+    # set counts at S - 1, S and S + 1 (and the three in turn) for the L1
+    # and L2 geometries: chunk edges just before, on and just after set
+    # edges
+    for n_sets, ways in ((128, 8), (2048, 16)):
+        S = k.SPLIT_MIN_PER_WAY * ways
+        for name, deltas in (("S-1", [-1]), ("S", [0]), ("S+1", [1]),
+                             ("S-1,S,S+1", [-1, 0, 1])):
+            per_set = [S + deltas[i % len(deltas)] for i in range(n_sets)]
+            if k.split_plan(sum(per_set), ways, device)[0] != S:
+                raise AssertionError(f"cache_replay {name}: the wrapper's "
+                                     f"chunk length is not {S}")
+            named.append((f"counts_{name}_{n_sets}x{ways}", (
+                *b6_counts_stream(torch, per_set, n_sets, ways, g, device),
+                n_sets, ways)))
+    for name, args in named:
         for wa in (True, False):
             r = check(*args, wa, f"{name} wa={wa}")
             structured.append({"case": name, "write_allocate": wa, **r})
+    # 1 M accesses in one set
+    cfg = B6_ONE_SET
+    one_l = torch.randint(0, cfg["lines"], (cfg["n"],), generator=g,
+                          device=device) * cfg["n_sets"]
+    one_w = torch.rand(cfg["n"], generator=g, device=device) < 0.35
+    host_l = (one_l // cfg["n_sets"]).tolist()
+    host_w = one_w.tolist()
+    for wa in (True, False):
+        what = f"one_set_1M wa={wa}"
+        packed, offsets, counts, got, r = run(
+            one_l, one_w, cfg["n_sets"], cfg["ways"], wa, what)
+        head = packed[:B6_MAX_SLOTS]          # one set: results are causal
+        h_counts = torch.clamp(counts, max=B6_MAX_SLOTS)
+        h_offsets = torch.zeros_like(offsets)
+        same(got[:B6_MAX_SLOTS], k.cache_replay_plain(
+            head, h_offsets, h_counts, cfg["ways"], wa), what + " prefix")
+        want = torch.tensor(lru_one_set(host_l, host_w, cfg["ways"], wa),
+                            dtype=torch.int64, device=device)
+        # the host LRU reports line numbers within the set; the kernel
+        # reports line addresses
+        ev = (want >> 3) - 1
+        want = torch.where(ev >= 0, ((ev * cfg["n_sets"] + 1) << 3)
+                           | (want & 7), want)
+        same(got, want, what + " against the host LRU")
+        structured.append({"case": "one_set_1M", "write_allocate": wa,
+                           "checked": f"first {B6_MAX_SLOTS} against the "
+                                      f"plain version, all against a "
+                                      f"plain LRU on the host", **r})
     emit("kernel_check", kernel="cache_replay", cases=cases,
          ways=list(B6_WAYS), n_sets=list(B6_SETS),
          structured=structured, repeat_runs="bit-equal",
+         chain_steps_is="under write-allocate the longest run of one set "
+                        "inside one chunk of the split replay, otherwise "
+                        "the longest set",
          tolerance="exact (int64 result words)", max_abs_err=0)
     return {"max_abs_err": 0}
 
@@ -2645,9 +2781,11 @@ def phase_gpu(torch, np, device) -> dict:
 
 
 def time_cache_replay(torch, np, device, gpu, check) -> dict:
-    """B6 at the L1 and L2 shapes of the GPU-cache path's main run and on
-    the 1 M-event mixed stream; the plain version at the mixed stream (at
-    the L1 shape its slot loop runs 47 k steps of eager launches)."""
+    """B6 at the L1 and L2 shapes of the GPU-cache path's main run, on the
+    1 M-event mixed stream and on 1 M accesses in one set (write-allocate,
+    the path's policy: the split replay); the plain version at the mixed
+    stream (at the L1 shape its slot loop runs 47 k steps of eager
+    launches); the CUDA kernels a call from a profiler trace."""
     from repro_torch.kernels.cache_replay import kernel as k
 
     def timed(packed, offsets, counts, ways):
@@ -2655,13 +2793,27 @@ def time_cache_replay(torch, np, device, gpu, check) -> dict:
             lambda: k.cache_replay_sorted(packed, offsets, counts, ways,
                                           True), runs=20))
 
+    def split(packed, offsets, counts, ways):
+        S, chunks = k.split_plan(packed.shape[0], ways, device)
+        return {"S": S, "segments": chunks,
+                "chain_steps": longest_piece(np, offsets, counts, S)}
+
     l1, l2 = gpu["inputs"]["b6_l1"], gpu["inputs"]["b6_l2"]
     ms_l1, ms_l2 = timed(*l1), timed(*l2)
     lines, w = (torch.from_numpy(x).to(device) for x in mixed_stream(np))
     mixed = (*b6_layout(torch, lines, w, 128), 8)
     ms_mixed = timed(*mixed)
+    cfg = B6_ONE_SET
+    g = torch.Generator(device=device).manual_seed(601)
+    one_l = torch.randint(0, cfg["lines"], (cfg["n"],), generator=g,
+                          device=device) * cfg["n_sets"]
+    one_w = torch.rand(cfg["n"], generator=g, device=device) < 0.35
+    one = (*b6_layout(torch, one_l, one_w, cfg["n_sets"]), cfg["ways"])
+    ms_one = timed(*one)
     plain_ms = statistics.median(cuda_ms(
         lambda: k.cache_replay_plain(*mixed, True), runs=3))
+    per_call = profile_fresh(torch, PROFILE_B6, l1[:3], l1[3])
+    per_call_wa = per_call["write_allocate"]
 
     def bound(packed, offsets, counts, ways):
         n, n_sets = packed.shape[0], offsets.shape[0]
@@ -2671,25 +2823,42 @@ def time_cache_replay(torch, np, device, gpu, check) -> dict:
         n_ops = n * (2 * ways + 8)
         return n_bytes, n_ops
 
+    def bound_ms(*level):
+        n_bytes, n_ops = bound(*level)
+        return max(n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S) * 1e3
+
     n_bytes, n_ops = bound(*l1)
+    s1, s2, s3, s4 = split(*l1), split(*l2), split(*mixed), split(*one)
     row = kernel_row(
         "cache_replay", B6_SOURCE, B6_REPLACES, gpu["launches"],
         check["max_abs_err"], ms_l1, plain_ms, n_bytes, n_ops,
         INT_OPS_PER_S, None,
         ms_shape={"events": l1[0].shape[0], "n_sets": l1[1].shape[0],
-                  "ways": l1[3], "level": "L1 of the main run"},
-        chain_steps=int(l1[2].max()),
+                  "ways": l1[3], "level": "L1 of the main run",
+                  "write_allocate": True},
+        chain_steps=s1["chain_steps"], S=s1["S"], segments=s1["segments"],
+        chain_steps_is="the longest run of one set inside one chunk of S "
+                       "accesses (the split replay's chain); the per-set "
+                       "chain kernel's was the longest set",
+        cuda_launches_per_call=sum(
+            per_call_wa.get(name, {}).get("launches", 0)
+            for name in B6_SPLIT_KERNELS),
+        cuda_launches_per_call_no_write_allocate=per_call[
+            "no_write_allocate"].get(B6_CHAIN_KERNEL, {}).get("launches"),
+        device_kernels_per_call=per_call,
         ms_l2=ms_l2, l2_events=l2[0].shape[0],
-        l2_chain_steps=int(l2[2].max()),
-        ms_1m_mixed=ms_mixed, mixed_chain_steps=int(mixed[2].max()),
+        l2_chain_steps=s2["chain_steps"], l2_S=s2["S"],
+        l2_segments=s2["segments"],
+        ms_1m_mixed=ms_mixed, mixed_chain_steps=s3["chain_steps"],
+        mixed_S=s3["S"], mixed_segments=s3["segments"],
+        ms_one_set_1m=ms_one, one_set_chain_steps=s4["chain_steps"],
+        one_set_S=s4["S"], one_set_segments=s4["segments"],
+        one_set_shape=dict(cfg),
         plain_ms_shape="the 1 M-event mixed stream (128 sets x 8 ways)",
         library_call="none: no PyTorch call computes an LRU replay")
-    n_bytes2, n_ops2 = bound(*l2)
-    row["bound_ms_l2"] = max(n_bytes2 / HBM_BYTES_PER_S,
-                             n_ops2 / INT_OPS_PER_S) * 1e3
-    n_bytes3, n_ops3 = bound(*mixed)
-    row["bound_ms_1m_mixed"] = max(n_bytes3 / HBM_BYTES_PER_S,
-                                   n_ops3 / INT_OPS_PER_S) * 1e3
+    row["bound_ms_l2"] = bound_ms(*l2)
+    row["bound_ms_1m_mixed"] = bound_ms(*mixed)
+    row["bound_ms_one_set_1m"] = bound_ms(*one)
     return row
 
 

@@ -11,13 +11,14 @@ Two implementations of the per-level replay exist:
   ``set_parallel`` (default)
       Accesses to different cache sets are independent in a
       set-associative cache, so the level's stream goes to the torch
-      ``device``, is stably sorted by set there, every set is replayed
-      concurrently by the hand-written ``cache_replay`` kernel (one CUDA
-      launch per level; on a CPU tensor its plain PyTorch version), and
-      the per-access results are put back into stream order and copied to
-      the host.  The kernel reads the compact set-sorted stream: there is
-      no padding of every set to a common length and no fallback for a
-      stream skewed onto a few sets.
+      ``device``, is stably sorted by set there, replayed by the
+      hand-written ``cache_replay`` kernels (one wrapper call per level;
+      under write-allocate the split replay, which also cuts each set's
+      stream in time, otherwise one chain per set; on a CPU tensor the
+      plain PyTorch version), and the per-access results are put back
+      into stream order and copied to the host.  The kernels read the
+      compact set-sorted stream: there is no padding of every set to a
+      common length and no fallback for a stream skewed onto a few sets.
 
   ``scalar``
       One access at a time over the whole ``(n_sets, ways)`` state, in a

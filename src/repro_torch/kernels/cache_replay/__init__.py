@@ -1,7 +1,7 @@
 """Set-parallel LRU write-back cache replay (the cache backend's hot loop).
 
-``kernel.py`` holds the wrapper of the hand-written CUDA kernel
-(``csrc/cache_replay.cu``), its plain PyTorch version and the launch
+``kernel.py`` holds the wrapper of the hand-written CUDA kernels
+(``csrc/cache_replay.cu``), their plain PyTorch version and the launch
 count; ``ops.py`` the public entry point that partitions a stream by set
 and puts the per-access results back into stream order.
 """

@@ -23,13 +23,17 @@ whether that line was dirty.  This is the reference's
 layout: no padding of every set to a common length.
 
 :func:`cache_replay_sorted` is the wrapper: on CUDA tensors it launches the
-hand-written kernel (``csrc/cache_replay.cu``, built at first use; one
-launch per call, counted in ``.launches``; ``ways`` up to
-:data:`MAX_WAYS`) or raises; on CPU tensors it runs
-:func:`cache_replay_plain`, the same function in stock torch ops (an eager
-loop over slots, vectorised over sets, as the reference's scan steps),
-which is also what the tests and the on-card comparison hold the kernel
-against.  ``cache_replay_plain.calls`` counts the plain version's calls.
+hand-written kernels (``csrc/cache_replay.cu``, built at first use; one
+wrapper call counted in ``.launches``; ``ways`` up to :data:`MAX_WAYS`) or
+raises; on CPU tensors it runs :func:`cache_replay_plain`, the same
+function in stock torch ops (an eager loop over slots, vectorised over
+sets, as the reference's scan steps), which is also what the tests and the
+on-card comparison hold the kernels against.  ``cache_replay_plain.calls``
+counts the plain version's calls.  The write policy alone picks the
+design: under write-allocate the split replay (chunks of
+:func:`split_length` accesses replayed in parallel, three CUDA launches a
+call), otherwise the per-set chain (one launch); the source note says why
+the split is exact only under write-allocate.
 """
 
 from __future__ import annotations
@@ -43,6 +47,17 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_WAYS = 32            # csrc: one 32-bit word of dirty bits per set
+# the split replay's chunks hold at least this many accesses per way, so
+# that a chunk's lists (at most `ways` lines) stay small beside its replay
+SPLIT_MIN_PER_WAY = 4
+
+
+def split_length(n: int, ways: int, n_sms: int, resident_warps: int) -> int:
+    """Accesses per chunk of the split replay: just enough that one chunk a
+    lane fills each of the card's ``n_sms * resident_warps`` resident warps
+    of the replay kernel once, and at least ``SPLIT_MIN_PER_WAY * ways``."""
+    lanes = n_sms * resident_warps * 32
+    return max(SPLIT_MIN_PER_WAY * ways, -(-n // lanes))
 
 
 def cache_replay_plain(packed: torch.Tensor, offsets: torch.Tensor,
@@ -111,20 +126,53 @@ def _check(name: str, x: torch.Tensor, device: torch.device,
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
-    fn = _build.load_library("cache_replay").cache_replay_launch
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    """The built library of ``csrc/cache_replay.cu``, its entry points
+    typed: the chain's launch and the split replay's launch, scratch size
+    and occupancy query."""
+    lib = _build.load_library("cache_replay")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.cache_replay_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                        ptr]
+    lib.cache_replay_launch.restype = i32
+    lib.cache_replay_split_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
+                                              i32, i32, i32, ptr]
+    lib.cache_replay_split_launch.restype = i32
+    lib.cache_replay_split_scratch_bytes.argtypes = [i64, i32, i32]
+    lib.cache_replay_split_scratch_bytes.restype = i64
+    lib.cache_replay_split_resident_warps.argtypes = [i32]
+    lib.cache_replay_split_resident_warps.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_warps(device_index: int, ways: int) -> int:
+    with torch.cuda.device(device_index):
+        warps = _launcher().cache_replay_split_resident_warps(ways)
+    if warps <= 0:
+        raise RuntimeError(f"cache_replay: occupancy query failed: CUDA "
+                           f"error {-warps}")
+    return warps
+
+
+def split_plan(n: int, ways: int, device) -> tuple[int, int]:
+    """``(S, chunks)`` of the split replay of ``n`` accesses on a CUDA
+    device: the chunk length :func:`split_length` picks from the device's
+    SM count and the replay kernel's resident warps, and the chunk count."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n_sms = torch.cuda.get_device_properties(index).multi_processor_count
+    S = split_length(n, ways, n_sms, _resident_warps(index, ways))
+    return S, -(-n // S)
 
 
 def cache_replay_sorted(packed: torch.Tensor, offsets: torch.Tensor,
                         counts: torch.Tensor, ways: int,
                         write_allocate: bool) -> torch.Tensor:
     """Per-access result words of one level in the set-sorted layout; see
-    the module docstring.  CUDA tensors go to the kernel, CPU tensors to
-    the plain version; there is no fallback from one to the other."""
+    the module docstring.  CUDA tensors go to the kernels (the split replay
+    under write-allocate, the per-set chain otherwise), CPU tensors to the
+    plain version; there is no fallback from one to another."""
     dev = packed.device
     _check("packed", packed, dev)
     _check("offsets", offsets, dev)
@@ -141,7 +189,7 @@ def cache_replay_sorted(packed: torch.Tensor, offsets: torch.Tensor,
                          f"ways, got {ways}")
     n, n_sets = packed.shape[0], offsets.shape[0]
     if n >= 2 ** 31 or n_sets >= 2 ** 31:
-        # the kernel's step index and stamps are 32-bit
+        # both designs keep step indices, stamps and counts in 32 bits
         raise ValueError(f"cache_replay takes under 2^31 accesses and "
                          f"sets, got {n} and {n_sets}")
     out = torch.empty(n, dtype=torch.int64, device=dev)
@@ -149,10 +197,21 @@ def cache_replay_sorted(packed: torch.Tensor, offsets: torch.Tensor,
         return out
     with (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
           else contextlib.nullcontext()):
-        err = _launcher()(packed.data_ptr(), offsets.data_ptr(),
-                          counts.data_ptr(), out.data_ptr(), n_sets, ways,
-                          int(bool(write_allocate)),
-                          torch._C._cuda_getCurrentRawStream(dev.index))
+        lib = _launcher()
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        if write_allocate:
+            S, _ = split_plan(n, ways, dev)
+            scratch = torch.empty(
+                lib.cache_replay_split_scratch_bytes(n, ways, S),
+                dtype=torch.uint8, device=dev)
+            err = lib.cache_replay_split_launch(
+                packed.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), n, n_sets, ways, S,
+                stream)
+        else:
+            err = lib.cache_replay_launch(
+                packed.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
+                out.data_ptr(), n_sets, ways, 0, stream)
     cache_replay_sorted.launches += 1
     if err != 0:
         raise RuntimeError(

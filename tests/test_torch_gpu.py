@@ -8,7 +8,8 @@ version on the same inputs with the CPU tests' tolerances (the backward
 kernels in float32 within 1e-5; the bf16 tensor-core kernels within the
 bf16 tolerances and bit-equal from run to run; the lifetime scan exactly,
 on structured streams that put segment edges on the kernel's range edges;
-the cache replay bit for bit, on random, skewed and near-2^59 streams;
+the cache replay bit for bit, on random, skewed and near-2^59 streams,
+200 k accesses in one set and set counts at S - 1, S and S + 1;
 the policy kernels with exact counts and picks and energy within 1e-12),
 and the serving and training paths with the kernels against the JAX
 reference's golden fixtures.
@@ -415,16 +416,67 @@ def test_lifetime_scan_kernel_matches_plain_on_structured_cases(cuda, case):
     assert int(stats[4] + stats[5]) == t.shape[0]
 
 
-def _b6_stream(n, n_sets, ways, seed, dev, skew=False, top=False):
-    """Line addresses and write flags on the card for B6's cases."""
+# the ``counts`` kinds of B6's cases: every set holds S plus one of these
+B6_COUNT_DELTAS = {"s_minus_1": [-1], "s": [0], "s_plus_1": [1],
+                   "s_mixed": [-1, 0, 1]}
+# a one-set stream longer than this is held against the plain version on
+# its first B6_PREFIX accesses (one set: results are causal) and against
+# a plain LRU on the host on all of them: the plain version's slot loop
+# syncs with the host on every slot
+B6_PREFIX = 2000
+
+
+def _b6_stream(n, n_sets, ways, seed, dev, kind="random"):
+    """Line addresses and write flags on the card for B6's cases; the
+    ``B6_COUNT_DELTAS`` kinds give every set exactly S - 1, S or S + 1
+    accesses (cycling through the three for ``s_mixed``), S being the split
+    replay's chunk length for that stream, so that chunk edges fall just
+    before, on and just after set edges."""
     g = torch.Generator(device=dev).manual_seed(seed)
+    if kind in B6_COUNT_DELTAS:
+        from repro_torch.kernels.cache_replay import kernel
+        S = kernel.SPLIT_MIN_PER_WAY * ways
+        delta = B6_COUNT_DELTAS[kind]
+        per_set = torch.tensor([S + delta[i % len(delta)]
+                                for i in range(n_sets)], device=dev)
+        n = int(per_set.sum())
+        # the chunk length the wrapper picks for this stream is S
+        assert kernel.split_plan(n, ways, dev)[0] == S
+        sets = torch.repeat_interleave(torch.arange(n_sets, device=dev),
+                                       per_set)
+        sets = sets[torch.randperm(n, generator=g, device=dev)]
+        tags = torch.randint(0, 3 * ways, (n,), generator=g, device=dev)
+        lines = sets + n_sets * tags
+        return lines, torch.rand(n, generator=g, device=dev) < 0.35
     lines = torch.randint(0, 8 + 3 * n_sets * ways, (n,), generator=g,
                           device=dev)
-    if skew:                          # every access in set 0
+    if kind == "skew":                # every access in set 0
         lines = (lines % 64) * n_sets
-    if top:                           # line addresses near 2**59 - 1
+    if kind == "few":                 # three lines, all in set 0
+        lines = (lines % 3) * n_sets
+    if kind == "top":                 # line addresses near 2**59 - 1
         lines = 2 ** 59 - 1 - lines
     return lines, torch.rand(n, generator=g, device=dev) < 0.35
+
+
+def _lru_words(lines, w, ways, write_allocate):
+    """Result words of one set's stream by a plain LRU on the host (an
+    ordered dict of line -> dirty, least recent first)."""
+    from collections import OrderedDict
+    state, out = OrderedDict(), []
+    for a, write in zip(lines.tolist(), w.tolist()):
+        if a in state:
+            state.move_to_end(a)
+            state[a] |= write
+            out.append(1)
+        elif not write_allocate and write:
+            out.append(0)
+        else:
+            evict, dirty = (state.popitem(last=False)
+                            if len(state) == ways else (-1, False))
+            state[a] = write
+            out.append(((evict + 1) << 3) | (int(dirty) << 2) | 2)
+    return torch.tensor(out, dtype=torch.int64)
 
 
 @pytest.mark.gpu
@@ -434,15 +486,22 @@ def _b6_stream(n, n_sets, ways, seed, dev, skew=False, top=False):
     (128, 8, 200000, "random"), (2048, 16, 200000, "random"),
     (4096, 16, 300000, "random"), (16, 3, 20000, "random"),
     (4, 32, 20000, "random"), (128, 8, 20000, "skew"),
-    (64, 4, 20000, "top"), (128, 8, 0, "random")])
+    (64, 4, 20000, "top"), (128, 8, 0, "random"),
+    (128, 8, 200000, "skew"), (128, 8, 200000, "few"),
+    (128, 8, None, "s_minus_1"), (128, 8, None, "s"),
+    (128, 8, None, "s_plus_1"), (64, 16, None, "s_mixed"),
+    (16, 3, None, "s_mixed")])
 def test_cache_replay_kernel_matches_plain(cuda, n_sets, ways, n, kind,
                                            write_allocate):
     """B6 bit-equal to its plain version, and to itself on a second run;
-    one launch per call, none for an empty stream."""
+    one wrapper call counted per call, none for an empty stream.  The
+    write policy picks the kernel: the split replay under write-allocate
+    (here also on 200 k accesses in one set and on set counts at S - 1, S
+    and S + 1), the per-set chain otherwise."""
     from repro_torch.kernels.cache_replay import kernel
     from repro_torch.kernels.cache_replay.ops import partition_by_set
-    lines, w = _b6_stream(n, n_sets, ways, n_sets + ways, cuda,
-                          skew=kind == "skew", top=kind == "top")
+    lines, w = _b6_stream(n, n_sets, ways, n_sets + ways, cuda, kind)
+    n = lines.shape[0]
     order, offsets, counts = partition_by_set(lines, n_sets)
     packed = (lines * 2 + w.to(torch.int64))[order]
     before = kernel.cache_replay_sorted.launches
@@ -452,9 +511,22 @@ def test_cache_replay_kernel_matches_plain(cuda, n_sets, ways, n, kind,
                                        write_allocate)
     torch.cuda.synchronize()
     assert kernel.cache_replay_sorted.launches == before + 2 * (n > 0)
-    want = kernel.cache_replay_plain(packed, offsets, counts, ways,
-                                     write_allocate)
-    assert torch.equal(got, want) and torch.equal(again, got)
+    assert torch.equal(again, got)
+    if n and int(counts.max()) > 20000:
+        assert int(counts[0]) == n                 # one set: set 0
+        head = kernel.cache_replay_plain(
+            packed[:B6_PREFIX], torch.zeros_like(offsets),
+            torch.clamp(counts, max=B6_PREFIX), ways, write_allocate)
+        assert torch.equal(got[:B6_PREFIX], head)
+        want = _lru_words(lines // n_sets, w, ways, write_allocate)
+        ev = (want >> 3) - 1                       # lines of set 0
+        want = torch.where(ev >= 0, ((ev * n_sets + 1) << 3) | (want & 7),
+                           want)
+        assert torch.equal(got.cpu(), want)
+    else:
+        want = kernel.cache_replay_plain(packed, offsets, counts, ways,
+                                         write_allocate)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
