@@ -30,6 +30,14 @@ version on the card, and drives the port's two paths:
   grid timed, against numpy on the path's 2-layer session, and the sweep
   CLI's dry run; after the systolic sweep its session is freed and the
   composition memos are checked to hold nothing of it;
+* campaigns, once the GPU-cache session is freed: ``CampaignRunner`` on the
+  paper's MLPerf + PolyBench suites x ``systolic,gpu`` at registry
+  parameters with four threads (every ``gpu`` job two B6 calls, every
+  compose and sweep B7), each job's facts and the cross-suite aggregate
+  held against ``golden_campaign.json`` written from the JAX reference, a
+  warm rerun that executes nothing, and the process scheduler (two
+  ``python -m repro_torch worker`` processes on a subset) with artifacts
+  byte-identical to the thread scheduler's;
 * serving: ``launch.serve.generate`` on the Zamba2 smoke config against the
   JAX reference's golden logits and tokens, then Zamba2-2.7B at full width
   and depth (54 Mamba-2 blocks, 9 shared-attention applications) with the
@@ -59,8 +67,8 @@ lifetime scan's on random and structured streams, the cache replay's on
 random, skewed, empty, near-2^59 and mixed streams, set counts at S - 1, S
 and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
 and address structures), ``cli``, ``full``, ``sweep`` of the
-systolic session, ``gpu``, ``sweep`` of the GPU-cache session, ``golden``,
-``serve``, ``train_golden``, ``train``), then the
+systolic session, ``gpu``, ``sweep`` of the GPU-cache session,
+``campaign``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
 to a plain version.
@@ -148,6 +156,14 @@ B7_LAUNCH_KEYS = {"compose_policy_rf": "rf",
                   "compose_policy_ra_grouped": "ra_grouped",
                   "compose_policy_ra_decide": "ra_decide",
                   "compose_policy_ra_ungrouped": "ra_ungrouped"}
+# the campaign phase: the paper's MLPerf + PolyBench campaign on the card
+# against the reference's golden facts; the process scheduler on a subset
+GOLDEN_CAMPAIGN = ROOT / "tests" / "fixtures" / "torch" / \
+    "golden_campaign.json"
+CAMPAIGN_THREADS = 4
+CAMPAIGN_RTOL = 1e-9
+CAMPAIGN_PROCESS = {"workloads": "polybench-2mm,bert-base-uncased",
+                    "workers": 2}
 # fp64 operations the bounds count: a refresh-aware energy per (candidate,
 # device, lifetime or address) (2 products and 2 sums of energy_fj, the
 # refresh term's product, the comparison, the minimum), the retention
@@ -2619,7 +2635,8 @@ def trace_digest(np, t_sub) -> str:
 
 def check_gpu_entry(np, session, report, entry, key) -> dict:
     """A gpu session's trace, lifetimes and report against one golden
-    entry; returns {sub: short-lived fraction at 1 us}."""
+    entry (the short-lived fraction at 1 us too, exactly: a ratio of
+    integer counts); returns {sub: short-lived fraction at 1 us}."""
     from repro_torch.kernels.lifetime_scan.ops import (default_edges,
                                                        integer_edges)
     ie = integer_edges(default_edges())
@@ -2658,6 +2675,10 @@ def check_gpu_entry(np, session, report, entry, key) -> dict:
                 comp["area_vs_sram"])):
             raise AssertionError(f"gpu {key} {name}: report is not finite")
         short[name] = session.short_lived_fraction(name, 1e-6)
+        if short[name] != g["short_lived_fraction_1us"]:
+            raise AssertionError(f"gpu {key} {name}: short-lived fraction "
+                                 f"at 1 us {short[name]} != golden "
+                                 f"{g['short_lived_fraction_1us']}")
     return short
 
 
@@ -2862,6 +2883,119 @@ def time_cache_replay(torch, np, device, gpu, check) -> dict:
     return row
 
 
+def phase_campaign(torch, device) -> dict:
+    """The paper's MLPerf + PolyBench campaign through ``CampaignRunner``
+    on the card: cold with four threads (the main path: every ``gpu`` job
+    two B6 calls, every job's compose and sweep B7), held job by job and in
+    the aggregate against the golden file written from the JAX reference;
+    a warm rerun that executes nothing; then the process scheduler with two
+    worker processes over a subset into a fresh store, byte-identical to
+    the thread scheduler's artifacts.  A failed job, a job count other than
+    the plan's or a worker exit code other than 0 fails the phase."""
+    import tempfile
+
+    from repro_torch.launch.campaign import (CampaignRunner, campaign_facts,
+                                             compare_campaign_facts)
+
+    golden = json.loads(GOLDEN_CAMPAIGN.read_text())
+    run = golden["run"]
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-campaign-") as tmp:
+        thread_dir = os.path.join(tmp, "thread")
+
+        def runner(**kw):
+            return CampaignRunner(run["workloads"], run["backends"],
+                                  device=device, **kw)
+
+        torch.cuda.synchronize()
+        reset_cache_counts()                 # main path starts here
+        reset_b7_counts()
+        t0 = time.perf_counter()
+        cold = runner(jobs=CAMPAIGN_THREADS, cache_dir=thread_dir).run()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        b6 = cache_counts()                  # main path ends here
+        b7 = b7_counts()
+        labels = [j.label for j in cold.jobs]
+        n_gpu = sum(j.backend == "cachesim" for j in cold.jobs)
+        if cold.failed or cold.executed != len(labels) or \
+                labels != run["jobs"]:
+            raise AssertionError(
+                f"campaign: {cold.executed} of {len(labels)} jobs executed, "
+                f"{cold.failed} failed ({[e for e in cold.errors if e]}), "
+                f"plan {labels} against the golden {run['jobs']}")
+        if b6 != {"cache_replay": 2 * n_gpu, "plain": 0, "scalar": 0}:
+            raise AssertionError(f"campaign: replays {b6}, expected two B6 "
+                                 f"launches for each of {n_gpu} gpu jobs")
+        if b7["plain"] or not (b7["rf"] and b7["retention"]):
+            raise AssertionError(f"campaign: B7 calls {b7}")
+        worst = compare_campaign_facts(
+            campaign_facts(cold.artifacts, cold.aggregate),
+            {"jobs": golden["jobs"], "aggregate": golden["aggregate"]},
+            rtol=CAMPAIGN_RTOL)
+
+        t0 = time.perf_counter()
+        warm = runner(jobs=CAMPAIGN_THREADS, cache_dir=thread_dir).run()
+        warm_s = time.perf_counter() - t0
+        if warm.executed or warm.failed or \
+                warm.cache_hits != len(labels):
+            raise AssertionError(f"campaign warm rerun: {warm.executed} "
+                                 f"executed, {warm.failed} failed")
+
+        t0 = time.perf_counter()
+        process = CampaignRunner(
+            CAMPAIGN_PROCESS["workloads"], run["backends"],
+            jobs=CAMPAIGN_PROCESS["workers"], device=device,
+            cache_dir=os.path.join(tmp, "process"),
+            scheduler="process").run()
+        process_s = time.perf_counter() - t0
+        m = process.metrics
+        if process.failed or process.executed != len(process.jobs) or \
+                m["worker_deaths"] or m["worker_exit_codes"] != \
+                [0] * CAMPAIGN_PROCESS["workers"]:
+            raise AssertionError(
+                f"campaign, process scheduler: {process.executed} of "
+                f"{len(process.jobs)} executed, {process.failed} failed, "
+                f"{m['worker_deaths']} worker deaths, exit codes "
+                f"{m['worker_exit_codes']}")
+        for job in process.jobs:
+            with open(os.path.join(process.store_dir, f"{job.key}.json"),
+                      "rb") as a, \
+                    open(os.path.join(thread_dir, f"{job.key}.json"),
+                         "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"campaign: {job.label}'s artifact "
+                                         "differs between the schedulers")
+
+    agg = cold.aggregate["aggregate"]
+    bin_1us = "1e-06"
+    systolic = agg["systolic"]
+    emit("campaign", workloads=run["workloads"], backends=run["backends"],
+         jobs=len(labels), systolic_jobs=len(labels) - n_gpu, gpu_jobs=n_gpu,
+         threads=CAMPAIGN_THREADS, cold_s=cold_s, warm_s=warm_s,
+         warm_executed=warm.executed, b6_launches=b6["cache_replay"],
+         b7_launches=b7,
+         golden="every job's accesses, short-lived fractions and capacity "
+                "fractions and the aggregate exact; sweep area and energy "
+                f"within {CAMPAIGN_RTOL}",
+         golden_worst_rel_err=worst,
+         short_lived_1us={
+             "cachesim/L1": agg["cachesim"]["L1"]["short_lived"][bin_1us],
+             "cachesim/L2": agg["cachesim"]["L2"]["short_lived"][bin_1us],
+             **{f"systolic/{sub}": e["short_lived"][bin_1us]
+                for sub, e in systolic.items()},
+             "systolic (all buffers, access-weighted)": sum(
+                 e["short_lived"][bin_1us] * e["accesses"]
+                 for e in systolic.values()) / sum(
+                 e["accesses"] for e in systolic.values())},
+         process={"workloads": CAMPAIGN_PROCESS["workloads"],
+                  "workers": CAMPAIGN_PROCESS["workers"],
+                  "jobs": len(process.jobs), "seconds": process_s,
+                  "worker_deaths": m["worker_deaths"],
+                  "worker_exit_codes": m["worker_exit_codes"],
+                  "artifacts": "byte-identical to the thread scheduler's"})
+    return {"b6": b6["cache_replay"], "b7": b7}
+
+
 def host_rss_bytes() -> int:
     with open("/proc/self/statm") as f:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
@@ -2961,10 +3095,14 @@ def main() -> int:
     composes.append(gpu["b7"])
     del gpu
     torch.cuda.empty_cache()
+    # the campaign phase, after the GPU-cache session is freed: its B6 and
+    # B7 launches add to the rows' main-path counts
+    campaign = phase_campaign(torch, device)
+    b6_row["launches"] += campaign["b6"]
     for row in b7_rows:
         key = B7_LAUNCH_KEYS[row["name"]]
         row["launches"] = sum(run[key] for run in composes) + sum(
-            sw["launches"][key] for sw in sweeps)
+            sw["launches"][key] for sw in sweeps) + campaign["b7"][key]
     bwd_check = phase_bwd_check(torch, device)
     phase_golden(torch, np, device)
     serve = phase_serve(torch, device)

@@ -20,11 +20,24 @@ Subcommands:
              runs the policy kernels and the monolithic baselines on the
              CUDA device, ``--engine numpy`` the host oracle, ``--dry-run``
              a tiny built-in workload)
+  campaign   run N registered workloads x M backends through the full
+             pipeline on the CUDA device (``--device cpu`` for the host)
+             with a worker pool and an on-disk trace cache, and emit the
+             cross-suite aggregate report (access-weighted short-lived
+             fractions per backend per retention bin + suite-level Pareto
+             frontiers; ``--scheduler process`` runs lease-based worker
+             processes over a shared artifact store, ``--status DIR``
+             prints a campaign ledger's state, and ``--dry-run`` prints
+             the job plan without touching a backend or the device)
+  worker     join an in-flight process-scheduled campaign: lease jobs
+             from a shared artifact store (``--store DIR``), heartbeat,
+             execute on the campaign's device, and write artifacts until
+             the queue drains
   devices    list the registered device families (name, version,
              aliases, parameter schema)
 
-``campaign``, ``worker`` and ``check`` of the reference CLI are not ported
-yet; they say so and return 2.
+``check`` of the reference CLI (the contract analyzer, ``analysis/``) is
+not ported yet; it says so and returns 2.
 
 Examples::
 
@@ -40,6 +53,13 @@ Examples::
       --engine torch
   PYTHONPATH=src python -m repro_torch sweep --dry-run --engine torch \
       --device cpu
+  PYTHONPATH=src python -m repro_torch campaign --workloads polybench-2mm \
+      --backends systolic,gpu --device cpu
+  PYTHONPATH=src python -m repro_torch campaign --workloads suite:mlperf \
+      --backends systolic,gpu --scheduler process --jobs 2
+  PYTHONPATH=src python -m repro_torch campaign --status .gainsight-cache
+  PYTHONPATH=src python -m repro_torch campaign --dry-run
+  PYTHONPATH=src python -m repro_torch worker --store .gainsight-cache
   PYTHONPATH=src python -m repro_torch workloads
   PYTHONPATH=src python -m repro_torch backends
   PYTHONPATH=src python -m repro_torch devices
@@ -50,7 +70,7 @@ from __future__ import annotations
 import sys
 
 _USAGE = __doc__
-_NOT_PORTED = ("campaign", "worker", "check")
+_NOT_PORTED = ("check",)
 
 
 def main(argv=None) -> int:
@@ -67,9 +87,18 @@ def main(argv=None) -> int:
         from repro_torch.launch.sweep import main as sweep_main
         sweep_main(rest)
         return 0
+    if cmd == "campaign":
+        from repro_torch.launch.campaign import main as campaign_main
+        campaign_main(rest)
+        return 0
+    if cmd == "worker":
+        from repro_torch.cluster.worker import main as worker_main
+        worker_main(rest)
+        return 0
     if cmd in _NOT_PORTED:
         print(f"`{cmd}` is not ported to repro_torch yet (see ROADMAP.md, "
-              "Queue A); use `python -m repro` for it", file=sys.stderr)
+              "Queue A, A7: the contract analyzer, analysis/); use "
+              "`python -m repro` for it", file=sys.stderr)
         return 2
     if cmd == "workloads":
         from repro_torch.workloads import available_workloads, get_workload

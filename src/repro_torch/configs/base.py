@@ -15,8 +15,15 @@ from typing import Optional
 # the architectures this package has a config module for
 ARCH_IDS = (
     "tinyllama_1_1b",
+    "deepseek_67b",
+    "chatglm3_6b",
+    "qwen1_5_32b",
     "zamba2_2_7b",
+    "phi3_5_moe",
+    "deepseek_moe_16b",
+    "internvl2_1b",
     "mamba2_130m",
+    "whisper_small",
 )
 
 

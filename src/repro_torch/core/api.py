@@ -378,10 +378,13 @@ class ProfileSession:
 
     @classmethod
     def campaign(cls, workloads, backends, **kw):
-        """Multi-workload x multi-backend campaign: not ported yet."""
-        raise NotImplementedError(
-            "ProfileSession.campaign() is not ported yet: ROADMAP.md Queue "
-            "A7 (launch/campaign.py, cluster/)")
+        """Run a multi-workload x multi-backend campaign and return the
+        :class:`repro_torch.launch.campaign.CampaignResult` (cached, pooled;
+        see ``python -m repro_torch campaign``).  ``kw`` goes to
+        :class:`repro_torch.launch.campaign.CampaignRunner` (``jobs=``,
+        ``cache_dir=``, ``seq=``, ``retention_bins=``, ``device=``, ...)."""
+        from repro_torch.launch.campaign import CampaignRunner
+        return CampaignRunner(workloads, backends, **kw).run()
 
     # ------------------------------------------------------------------
     # accessors

@@ -222,7 +222,11 @@ def short_lived_fraction(
     weight by *accesses*: every event belonging to a lifetime that fits the
     retention counts.
     """
-    lt_s = stats.lifetime_cycles.to(torch.float64) / clock_hz
+    lt = stats.lifetime_cycles.to(torch.float64)
+    # divided by a tensor on the same device: a Python scalar divisor makes
+    # CUDA multiply by its reciprocal, which moves lifetimes that sit on a
+    # retention boundary (1000 cycles at 1 GHz is 1e-6 s) across it
+    lt_s = lt / torch.tensor(clock_hz, dtype=torch.float64, device=lt.device)
     valid = stats.valid
     fits = (lt_s <= retention_s) & valid
     if weight_by_accesses:

@@ -46,6 +46,15 @@ interpret mode) and ``param_dtype="float32"``, parameters from
 seq 64).  It holds the initial parameters (``param:<path>``), the batches,
 the per-step ``loss``, ``grad_norm`` and ``lr``, and the parameters after
 the last step (``final:<path>``).  ``--only train`` writes this file alone.
+
+``tests/fixtures/torch/golden_campaign.json``: the reference's campaign
+(``CampaignRunner``, thread scheduler, ``engine="numpy"``, the default
+retention bins and sweep axes, no cache) over ``suite:mlperf,suite:polybench``
+x ``systolic,gpu`` at registry parameters, reduced to its key-free facts by
+``repro_torch.launch.campaign.campaign_facts``: per job the accesses and
+short-lived fractions per subpartition, the capacity fractions and the sweep
+points' area and energy against SRAM; and the cross-suite aggregate.
+``--only campaign`` writes this file alone (about a minute).
 """
 
 from __future__ import annotations
@@ -85,6 +94,10 @@ OUT_TRAIN = Path(__file__).parent / "fixtures" / "torch" / \
 TRAIN = {"batch": 2, "seq": 64, "steps": 3, "data_seed": 0}
 OUT_GPU = Path(__file__).parent / "fixtures" / "torch" / \
     "golden_gpu_cachesim.json"
+OUT_CAMPAIGN = Path(__file__).parent / "fixtures" / "torch" / \
+    "golden_campaign.json"
+CAMPAIGN = {"workloads": "suite:mlperf,suite:polybench",
+            "backends": ["systolic", "gpu"]}
 # entry key -> (registry workload, param overrides)
 GPU_ENTRIES = {"tinyllama_1_1b@2": ("tinyllama_1_1b", {"n_layers": 2}),
                "tinyllama_1_1b@22": ("tinyllama_1_1b", {"n_layers": 22})}
@@ -272,12 +285,32 @@ def golden_gpu() -> dict:
     return golden
 
 
+def golden_campaign() -> dict:
+    from repro.launch.campaign import (DEFAULT_RETENTION_BINS,
+                                       DEFAULT_SWEEP_AXES, CampaignRunner)
+    from repro_torch.launch.campaign import campaign_facts
+    result = CampaignRunner(CAMPAIGN["workloads"], CAMPAIGN["backends"],
+                            jobs=1).run()
+    if result.failed:
+        raise RuntimeError(f"reference campaign: {result.errors}")
+    run = {**CAMPAIGN, "engine": "numpy",
+           "retention_bins": list(DEFAULT_RETENTION_BINS),
+           "sweep_axes": DEFAULT_SWEEP_AXES,
+           "jobs": [j.label for j in result.jobs]}
+    return {"run": run, **campaign_facts(result.artifacts, result.aggregate)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 22])
     ap.add_argument("--only",
-                    choices=["tinyllama", "zamba2", "train", "gpu"])
+                    choices=["tinyllama", "zamba2", "train", "gpu",
+                             "campaign"])
     args = ap.parse_args(argv)
+    if args.only in (None, "campaign"):
+        OUT_CAMPAIGN.write_text(json.dumps(golden_campaign(), indent=1)
+                                + "\n")
+        print(f"wrote {OUT_CAMPAIGN}")
     if args.only in (None, "gpu"):
         OUT_GPU.parent.mkdir(parents=True, exist_ok=True)
         OUT_GPU.write_text(json.dumps(golden_gpu(), indent=1) + "\n")
@@ -288,7 +321,7 @@ def main(argv=None) -> None:
     if args.only in (None, "train"):
         np.savez_compressed(OUT_TRAIN, **golden_train())
         print(f"wrote {OUT_TRAIN}")
-    if args.only in ("zamba2", "train", "gpu"):
+    if args.only in ("zamba2", "train", "gpu", "campaign"):
         return
     golden = json.loads(OUT.read_text()) if OUT.exists() else {}
     golden["run"] = RUN

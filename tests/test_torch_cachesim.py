@@ -303,15 +303,15 @@ def _cache_workloads():
 
 
 def test_same_workloads_lower_to_the_cache_backends():
-    """All of the reference's but the archs whose configs the port lacks
-    (ROADMAP A4's remainder)."""
+    """All of the reference's, the ten archs included: the port has every
+    config module the reference has."""
     from repro_torch.configs.base import ARCH_IDS
     want = sorted(n for n in ref_workloads()
                   if ref_get_workload(n).supports("cachesim")
                   and (ref_get_workload(n).suite != "archs"
                        or n in ARCH_IDS))
     assert _cache_workloads() == want
-    assert len(want) == 16
+    assert len(want) == 23
 
 
 @pytest.mark.parametrize("name", _cache_workloads())

@@ -722,3 +722,57 @@ def test_compose_policy_limits_and_torch_engine_on_the_card(cuda):
             for name, e in cb.monolithic_energy_j.items():
                 assert ca.monolithic_energy_j[name] == pytest.approx(
                     e, rel=1e-9, abs=0)
+
+
+@pytest.mark.gpu
+def test_tiny_campaign_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """``polybench-2mm`` x ``systolic,gpu`` at small sizes through
+    ``CampaignRunner`` with two threads: the card's run (B6 for the gpu
+    job, B7 for every compose and sweep) has the CPU run's accesses,
+    short-lived and capacity fractions exactly and its sweep energies
+    within 1e-9."""
+    from repro_torch.kernels.cache_replay import kernel as b6
+    from repro_torch.kernels.compose_policy import kernel as b7
+    from repro_torch.launch.campaign import (CampaignRunner, campaign_facts,
+                                             compare_campaign_facts)
+    kw = dict(params={"polybench-2mm": {"ni": 24, "nj": 20, "nk": 16,
+                                        "nl": 28}},
+              backend_cfg={"systolic": {"rows": 16, "cols": 16}},
+              sweep_axes={"mixes": (0.0, 1.0), "retention_scales": (1.0,),
+                          "per_mix": False}, jobs=2)
+    facts = {}
+    for dev in ("cpu", cuda):
+        launches = (b6.cache_replay_sorted.launches, b7.policy_rf.launches)
+        result = CampaignRunner("polybench-2mm", ("systolic", "gpu"),
+                                cache_dir=str(tmp_path / str(dev)),
+                                device=dev, **kw).run()
+        assert result.failed == 0 and result.executed == 2
+        after = (b6.cache_replay_sorted.launches, b7.policy_rf.launches)
+        if dev == "cpu":
+            assert after == launches
+        else:
+            assert after[0] == launches[0] + 2 and after[1] > launches[1]
+        facts[str(dev)] = campaign_facts(result.artifacts, result.aggregate)
+    assert compare_campaign_facts(facts[str(cuda)], facts["cpu"]) <= 1e-9
+
+
+@pytest.mark.gpu
+def test_short_lived_fraction_on_the_card_keeps_boundary_lifetimes(cuda):
+    """Lifetimes of exactly k * 1000 cycles at 1 GHz lie on k us: the
+    card's short-lived fraction classifies them as the host's true division
+    does (a scalar divisor would be a reciprocal product on the card)."""
+    from repro_torch.core.lifetime import (extract_lifetimes,
+                                           short_lived_fraction)
+    lts = np.array([999, 1000, 1001, 3000, 5000, 7000, 9000, 10000, 10001,
+                    13000, 21000, 99000], np.int64)
+    n = len(lts)
+    time_cycles = np.stack([np.zeros(n, np.int64), lts], 1).ravel()
+    addr = np.repeat(np.arange(n, dtype=np.int64) * 64, 2)
+    is_write = np.tile([True, False], n)
+    hit = np.ones(2 * n, bool)
+    for ret in (1e-6, 3e-6, 5e-6, 7e-6, 9e-6, 1e-5, 1.3e-5, 2.1e-5, 9.9e-5):
+        want = float((lts / 1e9 <= ret).sum() / n)
+        for dev in ("cpu", cuda):
+            st = extract_lifetimes(time_cycles, addr, is_write, hit,
+                                   device=dev)
+            assert short_lived_fraction(st, 1e9, ret) == want, (dev, ret)

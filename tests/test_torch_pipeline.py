@@ -203,14 +203,13 @@ def test_what_is_not_ported_says_so():
     sess.profile(_layers(port_systolic), rows=16, cols=16)
     with pytest.raises(ValueError, match="numpy"):
         sess.compose(engine="jax")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortSession.campaign(["tinyllama_1_1b"], ["systolic"])
     with pytest.raises(ValueError, match="no lowering for backend"):
         port_get_workload("tinyllama_1_1b").build("tpu")
     with pytest.raises(ValueError, match="unknown backend"):
         PortSession("tpu_graph", device="cpu")
-    for cmd in ("campaign", "worker", "check"):
-        assert port_cli([cmd]) == 2
+    # campaign and worker are ported (tests/test_torch_campaign.py); the
+    # contract analyzer is not
+    assert port_cli(["check"]) == 2
 
 
 def test_cli_dry_run_and_listings(capsys, tmp_path):
