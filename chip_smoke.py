@@ -30,6 +30,10 @@ version on the card, and drives the port's two paths:
   grid timed, against numpy on the path's 2-layer session, and the sweep
   CLI's dry run; after the systolic sweep its session is freed and the
   composition memos are checked to hold nothing of it;
+* the contract analyzer: ``python -m repro_torch check --format json`` over
+  the checkout's tree (clean, five rules), then ``devices`` and
+  ``workloads`` with torch and numpy blocked and ``campaign --dry-run``
+  with torch blocked, each in an interpreter of its own;
 * campaigns, once the GPU-cache session is freed: ``CampaignRunner`` on the
   paper's MLPerf + PolyBench suites x ``systolic,gpu`` at registry
   parameters with four threads (every ``gpu`` job two B6 calls, every
@@ -66,7 +70,7 @@ tensor-core instructions in its SASS, ``kernel_check`` per kernel (the
 lifetime scan's on random and structured streams, the cache replay's on
 random, skewed, empty, near-2^59 and mixed streams, set counts at S - 1, S
 and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
-and address structures), ``cli``, ``full``, ``sweep`` of the
+and address structures), ``cli``, ``check``, ``full``, ``sweep`` of the
 systolic session, ``gpu``, ``sweep`` of the GPU-cache session,
 ``campaign``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -228,6 +232,11 @@ TRAIN = {"arch": "tinyllama_1_1b", "batch": 4, "seq": 2048, "steps": 5,
 # kernel path against plain path, float32 weights, one step: relative loss
 # difference and each gradient leaf's relative 2-norm difference
 TRAIN_REL_TOL = {"loss": 1e-4, "grad": 1e-3}
+# the contract analyzer's rules, in its reporting order, and the limit on
+# each command the check phase starts
+CHECK_RULES = ("import-purity", "dtype-safety", "registry-conformance",
+               "schema-drift", "atomic-write")
+CHECK_TIMEOUT_S = 120
 
 
 def emit(phase: str, **fields) -> None:
@@ -1383,6 +1392,53 @@ def phase_cli(golden) -> None:
     emit("cli", events=events, seconds=seconds,
          golden="n_layers=2 entry: counts and capacity fractions equal",
          gpu_dry_run=dry.getvalue().strip().splitlines()[-1])
+
+
+def repro_torch_cli(blocked, *argv) -> subprocess.CompletedProcess:
+    """``python -m repro_torch <argv>`` in a fresh interpreter with the
+    ``blocked`` modules unimportable (``sys.modules[name] = None``); raises
+    unless it exits 0."""
+    cmd = [sys.executable, "-m", "repro_torch", *argv]
+    if blocked:
+        cmd = [sys.executable, "-c",
+               "import runpy, sys\n"
+               f"for name in {list(blocked)!r}:\n"
+               "    sys.modules[name] = None\n"
+               f"sys.argv = ['repro_torch', *{list(argv)!r}]\n"
+               "runpy.run_module('repro_torch', run_name='__main__', "
+               "alter_sys=True)\n"]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=CHECK_TIMEOUT_S,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"python -m repro_torch {' '.join(argv)} (blocked: "
+            f"{list(blocked)}) exited {proc.returncode}:\n"
+            f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc
+
+
+def phase_check() -> None:
+    """The contract analyzer over the checkout's tree, then the planning
+    commands without the frameworks they must not import."""
+    t0 = time.perf_counter()
+    report = json.loads(repro_torch_cli((), "check", "--format",
+                                        "json").stdout)
+    if report["count"] != 0 or report["rules"] != list(CHECK_RULES):
+        raise AssertionError(f"repro_torch check: {report}")
+    lines = {}
+    for cmd in ("devices", "workloads"):
+        out = repro_torch_cli(("torch", "numpy"), cmd).stdout
+        if not out.strip():
+            raise AssertionError(f"{cmd} without torch and numpy: no output")
+        lines[cmd] = len(out.splitlines())
+    dry = repro_torch_cli(("torch",), "campaign", "--dry-run").stdout
+    if "campaign dry-run ok" not in dry:
+        raise AssertionError(f"campaign --dry-run without torch: {dry[-500:]}")
+    emit("check", rules=report["rules"], findings=report["count"],
+         listing_lines_without_torch_numpy=lines,
+         campaign_dry_run_without_torch=dry.strip().splitlines()[-1],
+         seconds=time.perf_counter() - t0)
 
 
 def phase_full(torch, np, device, golden) -> dict:
@@ -3062,6 +3118,7 @@ def main() -> int:
     fa_check = phase_fa_check(torch, device)
     ssd_check = phase_ssd_check(torch, device)
     phase_cli(golden)
+    phase_check()
     full = phase_full(torch, np, device, golden)
     # K1 is timed beside its own path, before the serving and training
     # phases, and its inputs are freed before them

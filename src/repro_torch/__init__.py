@@ -12,8 +12,18 @@ host.  Front door::
 
 Every entry point takes ``device=``; ``None`` means the CUDA device and
 raises when there is none (see :mod:`repro_torch.device`).
+
+The package root imports nothing, so the planning modules (``workloads``,
+``devices``, ``cluster``, ``analysis``, ``launch.campaign``, ``__main__``)
+import without torch; ``default_device`` and ``resolve_device`` load
+:mod:`repro_torch.device` on first use.
 """
 
-from repro_torch.device import default_device, resolve_device
-
 __all__ = ["default_device", "resolve_device"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from repro_torch import device
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -35,9 +35,13 @@ Subcommands:
              the queue drains
   devices    list the registered device families (name, version,
              aliases, parameter schema)
-
-``check`` of the reference CLI (the contract analyzer, ``analysis/``) is
-not ported yet; it says so and returns 2.
+  check      static contract analysis over the port's own AST: import
+             purity (torch/numpy stay off the planning paths), int64
+             trace dtypes, registry conformance, cache-key schema drift,
+             atomic writes in cluster/ and checkpoint/ (exit 0 clean, 1
+             findings, 2 bad invocation; ``--format json``,
+             ``--list-rules``, ``--write-baseline``,
+             ``--update-schema-manifest``); needs neither torch nor a card
 
 Examples::
 
@@ -63,6 +67,8 @@ Examples::
   PYTHONPATH=src python -m repro_torch workloads
   PYTHONPATH=src python -m repro_torch backends
   PYTHONPATH=src python -m repro_torch devices
+  PYTHONPATH=src python -m repro_torch check
+  PYTHONPATH=src python -m repro_torch check --format json
 """
 
 from __future__ import annotations
@@ -70,7 +76,6 @@ from __future__ import annotations
 import sys
 
 _USAGE = __doc__
-_NOT_PORTED = ("check",)
 
 
 def main(argv=None) -> int:
@@ -95,11 +100,9 @@ def main(argv=None) -> int:
         from repro_torch.cluster.worker import main as worker_main
         worker_main(rest)
         return 0
-    if cmd in _NOT_PORTED:
-        print(f"`{cmd}` is not ported to repro_torch yet (see ROADMAP.md, "
-              "Queue A, A7: the contract analyzer, analysis/); use "
-              "`python -m repro` for it", file=sys.stderr)
-        return 2
+    if cmd == "check":
+        from repro_torch.analysis.cli import main as check_main
+        return check_main(rest)
     if cmd == "workloads":
         from repro_torch.workloads import available_workloads, get_workload
         for name in available_workloads():

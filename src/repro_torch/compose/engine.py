@@ -57,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import weakref
-from typing import Mapping, Sequence
+from typing import TYPE_CHECKING, Mapping, Sequence
 
 import numpy as np
 
@@ -65,8 +65,13 @@ from repro_torch.compose.policies import (AddressGroups, AssignmentPolicy,
                                           PolicyBatch, get_policy)
 from repro_torch.compose.torch_engine import _segment_ids
 from repro_torch.compose.types import Composition
-from repro_torch.core.devices import DeviceModel
-from repro_torch.core.frontend import SubpartitionStats, analyze_energy
+# repro_torch.core is imported lazily (function scope): its package
+# __init__ pulls the torch-backed lifetime stack, and this module is part
+# of the repro_torch.compose torch-free-at-import contract
+# (`python -m repro_torch check`, import-purity)
+if TYPE_CHECKING:
+    from repro_torch.core.devices import DeviceModel
+    from repro_torch.core.frontend import SubpartitionStats
 
 #: evaluation engines that exist
 ENGINES = ("numpy", "torch")
@@ -75,6 +80,13 @@ ENGINES = ("numpy", "torch")
 # elements at the policy's item size.  256 MB keeps the matrices
 # cache-friendly without limiting total grid size.
 _MAX_BROADCAST_BYTES = 256 * 1024 * 1024
+
+
+def analyze_energy(stats: SubpartitionStats, device: DeviceModel):
+    """:func:`repro_torch.core.frontend.analyze_energy`, imported on first
+    call (see the import note above)."""
+    from repro_torch.core.frontend import analyze_energy as analyze
+    return analyze(stats, device)
 
 
 def _access_energy_fj(device: DeviceModel) -> float:

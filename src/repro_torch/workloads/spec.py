@@ -32,8 +32,8 @@ import hashlib
 import json
 from typing import Callable, Mapping, Sequence
 
-# Canonical backend names of the reference's aliases, so that asking for a
-# backend this package lacks is reported under its canonical name.
+# The reference's aliases, so a missing backend is reported by its canonical
+# name (tpu_graph: ROADMAP A10).  # repro: allow(registry-conformance)
 _BACKEND_ALIASES = {"gpu": "cachesim", "tpu": "tpu_graph"}
 
 

@@ -1,14 +1,16 @@
 """Import and device rules of the PyTorch port.
 
 The port imports ``torch`` and ``numpy``, never ``jax`` and nothing of the
-``repro`` reference package; its entry points default to the CUDA device
-and raise without one; a kernel wrapper handed a CPU tensor runs the plain
-version and never asks for a compiler.
+``repro`` reference package; its planning modules and command line import
+neither torch nor numpy (the package root imports nothing); its entry
+points default to the CUDA device and raise without one; a kernel wrapper
+handed a CPU tensor runs the plain version and never asks for a compiler.
 """
 
 import json
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -72,7 +74,14 @@ def test_port_imports_neither_jax_nor_reference():
                    "repro_torch.compose.torch_engine",
                    "repro_torch.sweep", "repro_torch.sweep.grid",
                    "repro_torch.sweep.pareto", "repro_torch.sweep.runner",
-                   "repro_torch.launch.sweep"):
+                   "repro_torch.launch.sweep", "repro_torch.analysis",
+                   "repro_torch.analysis.atomic", "repro_torch.analysis.cli",
+                   "repro_torch.analysis.context",
+                   "repro_torch.analysis.dtypes",
+                   "repro_torch.analysis.findings",
+                   "repro_torch.analysis.imports",
+                   "repro_torch.analysis.registry",
+                   "repro_torch.analysis.schema"):
         assert needed in mods
     code = (
         "import importlib, json, sys\n"
@@ -331,3 +340,112 @@ def test_build_without_a_compiler_raises(monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# ---------------------------------------------------------------------------
+# the package root imports nothing: planning runs without torch or numpy
+# ---------------------------------------------------------------------------
+
+#: the package root as it stood before it was made lazy: one module-level
+#: import of ``repro_torch.device``, which imports torch
+EAGER_ROOT = ('"""GainSight in PyTorch/CUDA."""\n\n'
+              "from repro_torch.device import default_device, "
+              "resolve_device\n\n"
+              '__all__ = ["default_device", "resolve_device"]\n')
+
+PLANNING = ("workloads", "devices", "cluster", "analysis",
+            "launch.campaign", "compose", "__main__")
+
+
+def test_an_eager_package_root_breaks_every_planning_contract(tmp_path):
+    from repro_torch.analysis import AnalysisContext, ImportPurityRule
+    shutil.copytree(SRC / "repro_torch", tmp_path / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "csrc"))
+    (tmp_path / "repro_torch" / "__init__.py").write_text(EAGER_ROOT)
+    findings = ImportPurityRule().run(AnalysisContext(str(tmp_path)))
+    assert sorted(f.message.split()[0] for f in findings) == sorted(
+        f"repro_torch.{m}" for m in PLANNING)
+    for f in findings:
+        assert (f.path, f.line) == ("repro_torch/device.py", 10)
+        assert "-> repro_torch -> repro_torch.device -> torch)" in f.message
+
+
+def test_the_real_package_root_breaks_no_import_contract():
+    from repro_torch.analysis import (AnalysisContext, ImportPurityRule,
+                                      default_root)
+    assert ImportPurityRule().run(AnalysisContext(default_root())) == []
+
+
+def _run_blocked(blocked, package, *argv, timeout=240):
+    """``python -m <package> <argv>`` with ``blocked`` modules unimportable
+    (``sys.modules[name] = None``), from the repo's source root."""
+    code = ("import runpy, sys\n"
+            f"for name in {list(blocked)!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"sys.argv = [{package!r}, *{list(argv)!r}]\n"
+            f"runpy.run_module({package!r}, run_name='__main__', "
+            "alter_sys=True)\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    return subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+@pytest.mark.parametrize("cmd", ("devices", "workloads", "check"))
+def test_planning_commands_run_without_torch_or_numpy(cmd):
+    out = _run_blocked(("torch", "numpy"), "repro_torch", cmd)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip()
+    if cmd == "check":
+        assert "repro_torch check: clean (5 rule(s)" in out.stdout
+
+
+def _listing_fields(text: str) -> list:
+    """Each family's describe() line (name, version, aliases, parameter
+    names) and each parameter's name and default; the help text of a
+    parameter is worded differently in the two packages."""
+    out = []
+    for line in text.splitlines():
+        if not line.startswith(" "):
+            out.append(line)
+        elif line.lstrip().startswith("--family-param "):
+            out.append(line.split("  ")[2])
+    return out
+
+
+def test_devices_listing_matches_the_reference_with_frameworks_blocked():
+    mine = _run_blocked(("torch", "numpy"), "repro_torch", "devices")
+    theirs = _run_blocked(("jax", "numpy"), "repro", "devices")
+    assert mine.returncode == theirs.returncode == 0, \
+        (mine.stderr[-2000:], theirs.stderr[-2000:])
+    fields = _listing_fields(mine.stdout)
+    assert fields == _listing_fields(theirs.stdout)
+    assert any("--family-param mixes=... (default 0:1)" in f for f in fields)
+
+
+def test_campaign_dry_run_without_torch():
+    out = _run_blocked(("torch",), "repro_torch", "campaign", "--dry-run")
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "campaign dry-run ok" in out.stdout
+
+
+def test_planning_imports_leave_torch_and_numpy_out():
+    code = (
+        "import importlib, json, sys\n"
+        f"mods = {[f'repro_torch.{m}' for m in PLANNING if m != 'compose']!r}\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "seen = {'planning': sorted(n for n in ('torch', 'numpy') "
+        "if n in sys.modules)}\n"
+        "import repro_torch.compose\n"
+        "seen['compose'] = 'torch' in sys.modules\n"
+        "import repro_torch\n"
+        "seen['device'] = str(repro_torch.resolve_device('cpu'))\n"
+        "seen['default'] = repro_torch.default_device.__module__\n"
+        "print(json.dumps(seen))\n")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == {
+        "planning": [], "compose": False, "device": "cpu",
+        "default": "repro_torch.device"}

@@ -207,9 +207,9 @@ def test_what_is_not_ported_says_so():
         port_get_workload("tinyllama_1_1b").build("tpu")
     with pytest.raises(ValueError, match="unknown backend"):
         PortSession("tpu_graph", device="cpu")
-    # campaign and worker are ported (tests/test_torch_campaign.py); the
-    # contract analyzer is not
-    assert port_cli(["check"]) == 2
+    # campaign and worker are ported (tests/test_torch_campaign.py), and
+    # so is the contract analyzer (tests/test_torch_analysis.py)
+    assert port_cli(["check", "--list-rules"]) == 0
 
 
 def test_cli_dry_run_and_listings(capsys, tmp_path):
