@@ -42,6 +42,14 @@ version on the card, and drives the port's two paths:
   warm rerun that executes nothing, and the process scheduler (two
   ``python -m repro_torch worker`` processes on a subset) with artifacts
   byte-identical to the thread scheduler's;
+* the graph-walking backend, once the campaign is done:
+  ``ProfileSession("tpu")`` on TinyLlama-1.1B's and Zamba2-2.7B's own
+  training steps at full width and depth (seq 128, batch 1, the ``archs``
+  lowering's sample 4), captured as aten graphs over meta tensors (no device
+  memory, no kernel launch), analyzed on the card and composed by B7
+  against the numpy engine (capacity bit-identical, energy within 1e-9);
+  before it, K5's missing backward: a gradient through ``ops.ssd_scan``
+  on the card raises;
 * serving: ``launch.serve.generate`` on the Zamba2 smoke config against the
   JAX reference's golden logits and tokens, then Zamba2-2.7B at full width
   and depth (54 Mamba-2 blocks, 9 shared-attention applications) with the
@@ -72,7 +80,8 @@ random, skewed, empty, near-2^59 and mixed streams, set counts at S - 1, S
 and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
 and address structures), ``cli``, ``check``, ``full``, ``sweep`` of the
 systolic session, ``gpu``, ``sweep`` of the GPU-cache session,
-``campaign``, ``golden``, ``serve``, ``train_golden``, ``train``), then the
+``campaign``, ``tpu``, ``golden``, ``serve``, ``train_golden``, ``train``;
+``ssd_no_backward`` after K5's ``kernel_check``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
 to a plain version.
@@ -237,6 +246,11 @@ TRAIN_REL_TOL = {"loss": 1e-4, "grad": 1e-3}
 CHECK_RULES = ("import-purity", "dtype-safety", "registry-conformance",
                "schema-drift", "atomic-write")
 CHECK_TIMEOUT_S = 120
+# the graph-walking backend on the framework's own training steps, at full
+# width and depth, through the archs lowering (its sample 4)
+TPU = {"archs": ("tinyllama_1_1b", "zamba2_2_7b"), "seq": 128, "batch": 1,
+       "tpu_smoke": False, "policies": ("refresh-free", "refresh-aware")}
+TPU_ENERGY_RTOL = 1e-9
 
 
 def emit(phase: str, **fields) -> None:
@@ -1389,9 +1403,19 @@ def phase_cli(golden) -> None:
             b6.cache_replay_sorted.launches != before + 2:
         raise AssertionError(f"profile --backend gpu --dry-run: rc {rc}, "
                              f"{dry.getvalue()[-300:]}")
+    # the graph-walking backend's dry run, analyzed and composed on the card
+    tpu_dry = io.StringIO()
+    with contextlib.redirect_stdout(tpu_dry):
+        rc = cli_main(["profile", "--backend", "tpu", "--dry-run"])
+    if rc != 0 or "dry-run ok: backend=tpu_graph subpartitions=['SMEM']" \
+            not in tpu_dry.getvalue() or \
+            "device=cuda" not in tpu_dry.getvalue():
+        raise AssertionError(f"profile --backend tpu --dry-run: rc {rc}, "
+                             f"{tpu_dry.getvalue()[-300:]}")
     emit("cli", events=events, seconds=seconds,
          golden="n_layers=2 entry: counts and capacity fractions equal",
-         gpu_dry_run=dry.getvalue().strip().splitlines()[-1])
+         gpu_dry_run=dry.getvalue().strip().splitlines()[-1],
+         tpu_dry_run=tpu_dry.getvalue().strip().splitlines()[-1])
 
 
 def repro_torch_cli(blocked, *argv) -> subprocess.CompletedProcess:
@@ -3089,6 +3113,155 @@ def check_session_freed(torch, refs, before) -> None:
                              f"stale memo entries: {stale}")
 
 
+def compare_compositions(got, want, what) -> float:
+    """Capacity fractions bit-identical, energies and area within
+    TPU_ENERGY_RTOL; returns the largest relative difference."""
+    import numpy as np
+    if tuple(got.devices) != tuple(want.devices) or \
+            not np.array_equal(got.capacity_fractions,
+                               want.capacity_fractions):
+        raise AssertionError(f"{what}: capacity {got.capacity_fractions} "
+                             f"!= numpy {want.capacity_fractions}")
+    pairs = [(got.energy_j, want.energy_j),
+             (got.energy_vs_sram, want.energy_vs_sram),
+             (got.area_um2, want.area_um2)]
+    pairs += [(got.monolithic_energy_j[d], want.monolithic_energy_j[d])
+              for d in want.monolithic_energy_j]
+    worst = 0.0
+    for g, w in pairs:
+        rel = abs(g - w) / max(abs(w), 1e-300)
+        if not rel <= TPU_ENERGY_RTOL:
+            raise AssertionError(f"{what}: {g} != numpy {w} (rel {rel})")
+        worst = max(worst, rel)
+    return worst
+
+
+def phase_tpu(torch, np, device) -> list:
+    """The graph-walking backend (``ProfileSession("tpu")``) on the
+    framework's own training steps at full width and depth (``tpu_smoke``
+    off), through the ``archs`` lowering: the walk captures each step over
+    meta tensors, so it must allocate no device memory and launch no
+    kernel (the K2 and K5 counts stay put); then analyze on the card and
+    compose with ``engine="torch"`` (B7) against ``engine="numpy"``,
+    refresh-free and refresh-aware.  Returns the B7 launches of each
+    session's compose steps."""
+    from repro_torch.backends.tpu_graph import CLOCK_HZ, capture_graph
+    from repro_torch.core import ProfileSession
+    from repro_torch.workloads import get_workload
+
+    max_sm = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    launches, runs = [], {}
+    for arch in TPU["archs"]:
+        spec = get_workload(arch).with_params(seq=TPU["seq"],
+                                              tpu_smoke=TPU["tpu_smoke"])
+        workload, cfg = spec.build("tpu")
+        fn, params, batch = workload
+        if cfg != {"sample": 4} or batch["tokens"].shape != \
+                (TPU["batch"], TPU["seq"]):
+            raise AssertionError(f"{arch}: tpu lowering gave {cfg}, "
+                                 f"tokens {batch['tokens']}")
+        tc = time.perf_counter()
+        nodes = len(capture_graph(fn, params, batch).graph.nodes)
+        capture_s = time.perf_counter() - tc
+
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts0 = serving_counts()
+        session = ProfileSession("tpu")
+        t0 = time.perf_counter()
+        session.profile(workload, **cfg)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        if torch.cuda.memory_allocated() != mem0 or \
+                torch.cuda.max_memory_allocated() != mem0:
+            raise AssertionError(f"{arch}: the walk allocated device memory")
+        if serving_counts() != counts0:
+            raise AssertionError(f"{arch}: the walk launched a kernel "
+                                 f"({counts0} -> {serving_counts()})")
+        trace = session.trace
+        t = np.asarray(trace.time_cycles)
+        if trace.names != ("SMEM",) or not np.all(np.diff(t) >= 0):
+            raise AssertionError(f"{arch}: trace contract broken")
+
+        reset_b7_counts()                        # main path starts here
+        t2 = time.perf_counter()
+        session.analyze()
+        t3 = time.perf_counter()
+        split, worst, b7 = {}, 0.0, None
+        for policy in TPU["policies"]:
+            ts = time.perf_counter()
+            session.compose(policy=policy)
+            torch.cuda.synchronize()
+            split[f"{policy}_torch_s"] = time.perf_counter() - ts
+            if b7 is None:
+                b7 = b7_counts()
+                if b7 != compose_b7_counts(session):
+                    raise AssertionError(f"{arch}: compose made B7 calls "
+                                         f"{b7}")
+            comp = session.composition("SMEM")
+            ts = time.perf_counter()
+            session.compose(policy=policy, engine="numpy")
+            split[f"{policy}_numpy_s"] = time.perf_counter() - ts
+            worst = max(worst, compare_compositions(
+                comp, session.composition("SMEM"), f"tpu {arch} {policy}"))
+        total = b7_counts()                      # main path ends here
+        if total["plain"] or sum(total.values()) <= sum(b7.values()):
+            raise AssertionError(f"{arch}: B7 calls {total}")
+        launches.append(total)
+        report = session.report()["subpartitions"]["SMEM"]
+        runs[arch] = {
+            "graph_nodes": nodes, "ops": session.report()["n_ops"],
+            "events": trace.n_events, "n_reads": report["n_reads"],
+            "n_writes": report["n_writes"],
+            "n_lifetimes": report["n_lifetimes"],
+            "capture_s": capture_s, "walk_s": t1 - t0,
+            "analyze_s": t3 - t2, "compose_s": split,
+            "short_lived_1us": session.short_lived_fraction("SMEM", 1e-6),
+            "b7_launches": total, "max_rel_energy_err": worst}
+        del session, trace
+    emit("tpu", seq=TPU["seq"], batch=TPU["batch"], sample=4,
+         tpu_smoke=TPU["tpu_smoke"],
+         model_clock_hz=CLOCK_HZ, clocks_max_sm=max_sm,
+         walk_device_memory="no allocation, no K2/K5 launch",
+         gate=f"capacity bit-identical to numpy, energy {TPU_ENERGY_RTOL}",
+         runs=runs)
+    return launches
+
+
+def phase_ssd_no_backward(torch, device) -> None:
+    """F6: K5 has no backward.  A gradient through ``ops.ssd_scan`` on the
+    card raises; the forward launches once and gives what the wrapper
+    gives without the gradient, bit for bit."""
+    from repro_torch.kernels.ssd_scan import kernel as k
+    from repro_torch.kernels.ssd_scan import ops
+    for dx in ("float32", "bfloat16"):
+        x, dt, A, B, C, D = ssd_inputs(torch, device, 1, 64, 4, 16, 16, dx,
+                                       dx, seed=300)
+        with torch.no_grad():
+            want = ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
+        x.requires_grad_(True)
+        before = k.ssd_scan_chunked.launches
+        y = ops.ssd_scan(x, dt, A, B, C, D, chunk=32)
+        torch.cuda.synchronize()
+        if k.ssd_scan_chunked.launches != before + 1 or \
+                not torch.equal(y.detach(), want):
+            raise AssertionError(f"ssd_scan {dx}: the forward moved")
+        try:
+            y.float().sum().backward()
+        except NotImplementedError as err:
+            if "no backward" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"ssd_scan {dx}: a backward through K5 "
+                                 "did not raise")
+    emit("ssd_no_backward", dtypes=["float32", "bfloat16"],
+         raised="NotImplementedError")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3117,6 +3290,7 @@ def main() -> int:
     check = phase_kernel_check(torch, device)
     fa_check = phase_fa_check(torch, device)
     ssd_check = phase_ssd_check(torch, device)
+    phase_ssd_no_backward(torch, device)
     phase_cli(golden)
     phase_check()
     full = phase_full(torch, np, device, golden)
@@ -3156,6 +3330,8 @@ def main() -> int:
     # B7 launches add to the rows' main-path counts
     campaign = phase_campaign(torch, device)
     b6_row["launches"] += campaign["b6"]
+    # the graph-walking backend on the models' own steps: B7 composes them
+    composes += phase_tpu(torch, np, device)
     for row in b7_rows:
         key = B7_LAUNCH_KEYS[row["name"]]
         row["launches"] = sum(run[key] for run in composes) + sum(

@@ -7,7 +7,7 @@ self-register with the ``repro_torch.core.api`` registry::
 
     from repro_torch.core import ProfileSession, get_backend
 
-    get_backend("systolic")          # or "cachesim"/"gpu", "opstream"
+    get_backend("systolic")    # or "cachesim"/"gpu", "opstream", "tpu_graph"/"tpu"
     ProfileSession("systolic").run(workload, rows=128, cols=128)
 
 (the CLI equivalent is ``python -m repro_torch profile --backend systolic``).
@@ -20,7 +20,7 @@ Built-in backends:
                session's torch device by the ``cache_replay`` kernel
   opstream   - operator-level address-stream generation from model op graphs
                (replaces SASS capture)
-
-The graph-walking ``tpu_graph`` backend of the reference package is not
-ported yet (ROADMAP A10).
+  tpu_graph  - the framework profiling its own models: a step captured as
+               an aten graph and walked op by op with H100 roofline costs
+               into a scratchpad trace (§5.3); registry alias "tpu"
 """

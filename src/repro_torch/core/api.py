@@ -94,12 +94,13 @@ class Backend(Protocol):
 
 _REGISTRY: dict = {}          # canonical name -> Backend class or instance
 _ALIASES: dict[str, str] = {}
-# only the backends this package has; the others are queued in ROADMAP.md
 _BUILTIN_MODULES = {
     "systolic": "repro_torch.backends.systolic",
     "cachesim": "repro_torch.backends.cachesim",
     "gpu": "repro_torch.backends.cachesim",
     "opstream": "repro_torch.backends.opstream",
+    "tpu_graph": "repro_torch.backends.tpu_graph",
+    "tpu": "repro_torch.backends.tpu_graph",
 }
 
 

@@ -11,8 +11,15 @@ composition, and emit the report (JSON + console).
       --backend gpu --seq 128
   PYTHONPATH=src python -m repro_torch profile --arch polybench-2mm \
       --backend systolic
+  PYTHONPATH=src python -m repro_torch profile --arch mamba2_130m \
+      --backend tpu --seq 64
   PYTHONPATH=src python -m repro_torch profile --backend gpu --dry-run \
       --device cpu
+
+``--backend tpu`` (``tpu_graph``) walks the config's own training step as
+an aten graph; it uses the smoke config unless ``--full`` is given, and
+never streams in chunks (``--chunk-events`` is ignored), as in the
+reference.
 
 Lifetime extraction, the cache backend's set-parallel replay and the
 composition (``--engine torch``, the default; ``--engine numpy`` is the
@@ -30,7 +37,8 @@ from repro_torch.compose.engine import ENGINES
 from repro_torch.core import ProfileSession
 from repro_torch.devices import get_device_family
 from repro_torch.workloads import get_workload
-from repro_torch.workloads.suites import transformer_program
+from repro_torch.workloads.suites import (tpu_step_workload,
+                                          transformer_program)
 
 # The paper device set, resolved through the device-family registry.
 _SRAM_DEV, SI_GCRAM, HYBRID_GCRAM = get_device_family(
@@ -79,6 +87,14 @@ def profile_gpu(cfg, seq, out, sample=8, chunk_events=None, device=None):
     return _summarize(session, out)
 
 
+def profile_tpu(cfg, seq, out, device=None):
+    """The graph-walking ("tpu") backend on a config's training step."""
+    session = ProfileSession("tpu", device=device)
+    session.profile(tpu_step_workload(cfg, seq), sample=4)
+    session.analyze().compose()
+    return _summarize(session, out)
+
+
 _DRY_SEQ = 16
 
 
@@ -90,12 +106,18 @@ def _dry_run(backend: str, policy: str = "refresh-free",
     name = session.backend.name
     if name == "systolic":
         session.profile([GemmLayer("dry", 32, 32, 32)], rows=16, cols=16)
-    else:   # cachesim / opstream
+    elif name in ("cachesim", "opstream"):
         def program(sb):
             from repro_torch.backends.opstream import transformer_ops
             transformer_ops(sb, d_model=64, n_heads=2, kv_heads=2,
                             d_ff=128, seq=_DRY_SEQ, n_layers=1)
         session.profile(program)
+    else:   # tpu_graph
+        import torch
+
+        from repro_torch.models.api import TensorSpec
+        x = TensorSpec((_DRY_SEQ, _DRY_SEQ), torch.float32)
+        session.profile((lambda a: (a @ a).sum(), x))
     report = session.analyze().compose(policy=policy,
                                        engine=engine).report()
     subs = report["subpartitions"]
@@ -108,13 +130,19 @@ def _dry_run(backend: str, policy: str = "refresh-free",
     return report
 
 
-def build_workload(arch: str, backend: str, *, seq: int | None = None):
+def build_workload(arch: str, backend: str, *, seq: int | None = None,
+                   smoke: bool = True):
     """Registry lowering for the CLI: ``(workload, backend_cfg)`` for any
-    registered workload name, with ``seq`` applied when the spec has that
-    param."""
+    registered workload name, with ``seq``/``tpu_smoke`` applied when the
+    spec has those params."""
     spec = get_workload(arch)
+    overrides = {}
     if seq is not None and "seq" in spec.param_dict:
-        spec = spec.with_params(seq=seq)
+        overrides["seq"] = seq
+    if "tpu_smoke" in spec.param_dict:
+        overrides["tpu_smoke"] = smoke
+    if overrides:
+        spec = spec.with_params(**overrides)
     return spec.build(backend)
 
 
@@ -123,8 +151,13 @@ def main(argv=None):
     ap.add_argument("--arch", default="tinyllama_1_1b",
                     help="registered workload name (see `python -m "
                          "repro_torch workloads`)")
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="the smoke config for --backend tpu (default)")
+    ap.add_argument("--full", dest="smoke", action="store_false",
+                    help="the full config for --backend tpu")
     ap.add_argument("--backend", default="systolic",
-                    choices=["systolic", "gpu", "cachesim", "opstream"],
+                    choices=["systolic", "gpu", "cachesim", "opstream",
+                             "tpu", "tpu_graph"],
                     help="registered backend (see `python -m repro_torch "
                          "backends`)")
     ap.add_argument("--dataflow", default="ws", choices=["is", "ws", "os"])
@@ -159,10 +192,11 @@ def main(argv=None):
                         device=args.device)
 
     session = ProfileSession(args.backend, device=args.device)
-    workload, cfg = build_workload(args.arch, args.backend, seq=args.seq)
+    workload, cfg = build_workload(args.arch, args.backend, seq=args.seq,
+                                   smoke=args.smoke)
     if args.backend == "systolic":
         cfg.update(rows=args.pe, cols=args.pe, dataflow=args.dataflow)
-    if args.chunk_events:
+    if session.backend.name != "tpu_graph" and args.chunk_events:
         cfg["chunk_events"] = args.chunk_events
     session.profile(workload, **cfg)
     session.analyze().compose(policy=args.policy, engine=args.engine)

@@ -83,12 +83,15 @@ def _workload(args):
         from repro_torch.backends.systolic import GemmLayer
         if args.backend == "systolic":
             return [GemmLayer("dry", 32, 32, 32)], {"rows": 16, "cols": 16}
-
-        def program(sb):
-            from repro_torch.backends.opstream import transformer_ops
-            transformer_ops(sb, d_model=64, n_heads=2, kv_heads=2,
-                            d_ff=128, seq=16, n_layers=1)
-        return program, {}
+        if args.backend in ("gpu", "cachesim", "opstream"):
+            def program(sb):
+                from repro_torch.backends.opstream import transformer_ops
+                transformer_ops(sb, d_model=64, n_heads=2, kv_heads=2,
+                                d_ff=128, seq=16, n_layers=1)
+            return program, {}
+        raise SystemExit(
+            f"--dry-run supports systolic/gpu/cachesim/opstream, "
+            f"not {args.backend!r}")
     from repro_torch.launch.profile import build_workload
     from repro_torch.workloads import get_workload
     workload, cfg = build_workload(args.arch, args.backend, seq=args.seq)
@@ -104,7 +107,8 @@ def main(argv=None):
         prog="python -m repro_torch sweep",
         description="composition design-space sweep + Pareto frontier")
     ap.add_argument("--backend", default="systolic",
-                    choices=["systolic", "gpu", "cachesim", "opstream"])
+                    choices=["systolic", "gpu", "cachesim", "opstream",
+                             "tpu", "tpu_graph"])
     ap.add_argument("--arch", default="tinyllama_1_1b")
     ap.add_argument("--seq", type=int, default=96)
     ap.add_argument("--pe", type=int, default=128)

@@ -7,11 +7,12 @@
   batch_specs(cfg, shape)       -> TensorSpec per batch entry
   make_batch(cfg, generator, shape) -> concrete synthetic batch
 
-Families ``dense``, ``ssm`` and ``hybrid`` are ported; the others (MoE,
-VLM, audio) raise ``NotImplementedError`` (ROADMAP A9).  Only the dense
-family trains: ``loss`` of ``ssm`` and ``hybrid`` raises, as their training
-loss waits for ROADMAP A9.  Tokens are int64, torch's index type (the
-reference uses int32).
+Families ``dense``, ``ssm`` and ``hybrid`` are ported, each with its
+training loss; the others (MoE, VLM, audio) raise ``NotImplementedError``
+(ROADMAP A9).  ``build(cfg, device="meta")`` gives parameters with shapes
+and dtypes but no storage, drawing nothing: the graph-walking backend
+captures a step over them (``launch/steps.py``, ``abstract_params``).
+Tokens are int64, torch's index type (the reference uses int32).
 """
 
 from __future__ import annotations
@@ -59,9 +60,10 @@ class ModelApi:
 def build(cfg: ArchConfig, device=None, generator=None) -> ModelApi:
     """The model of ``cfg`` with random weights on ``device`` (None: the
     CUDA device, raising without one), drawn from ``generator`` (a
-    ``torch.Generator`` on that device; None: one seeded with 0)."""
+    ``torch.Generator`` on that device; None: one seeded with 0).  On the
+    meta device nothing is drawn and ``generator`` is unused."""
     device = resolve_device(device)
-    if generator is None:
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     fam = cfg.family
     if fam == "dense":
@@ -71,21 +73,15 @@ def build(cfg: ArchConfig, device=None, generator=None) -> ModelApi:
     if fam == "ssm":
         from repro_torch.models import mamba2 as M
         return ModelApi(cfg, M.MambaLM(cfg, device, generator), M.prefill,
-                        M.decode_step, _no_loss)
+                        M.decode_step, M.loss_fn)
     if fam == "hybrid":
         from repro_torch.models import hybrid as H
         return ModelApi(cfg, H.HybridLM(cfg, device, generator), H.prefill,
-                        H.decode_step, _no_loss)
+                        H.decode_step, H.loss_fn)
     if fam in ("moe", "vlm", "audio"):
         raise NotImplementedError(
             f"family {fam!r} is not ported to repro_torch yet (ROADMAP A9)")
     raise ValueError(f"unknown family {fam}")
-
-
-def _no_loss(model, batch):
-    raise NotImplementedError(
-        f"the training loss of family {model.cfg.family!r} is not ported "
-        "to repro_torch yet (ROADMAP A9)")
 
 
 # ---------------------------------------------------------------------------

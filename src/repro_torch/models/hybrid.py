@@ -103,6 +103,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
     return c
 
 
+def loss_fn(model: HybridLM, batch):
+    """The training objective: the forward, then vocab-chunked cross
+    entropy (the reference's ``loss_fn``)."""
+    from repro_torch.models.transformer import chunked_ce_loss
+    hidden, _ = model(batch["tokens"])
+    return chunked_ce_loss(model, model.cfg, hidden, batch["labels"])
+
+
 @torch.no_grad()
 def prefill(model: HybridLM, tokens):
     """Logits of the last position and a *zero* cache sized to the tokens,

@@ -27,6 +27,8 @@ NEG_INF = -1e30
 
 
 def dense_init(shape, dtype, device, generator, scale=None):
+    if torch.device(device).type == "meta":      # shape and dtype only
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale or 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=generator, device=device,

@@ -4,7 +4,10 @@ Block layout follows the Mamba-2 paper: fused input projection producing
 (z, x, B, C, dt), short causal depthwise conv over (x, B, C), SSD scan,
 gated RMSNorm, output projection.  With ``cfg.attn_impl == "flash"`` (the
 reference's flag for "kernels on") the prefill scan runs the SSD kernel,
-otherwise the chunked plain form.
+otherwise the chunked plain form.  The kernel has no backward (nor has the
+reference's), so the training loss ``loss_fn`` trains through
+``attn_impl="ref"``; with ``cfg.remat`` each block is recomputed in the
+backward pass (the reference's ``jax.checkpoint`` on the scan body).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -123,12 +127,20 @@ def init_ssm_cache(cfg: ArchConfig, n_layers: int, batch: int, device):
     }
 
 
+def _block_out(blk, cfg, x):
+    return mamba_block(blk, cfg, x)[0]
+
+
 def run_blocks(blocks, cfg, x, cache=None, layer0=0):
     """Run ``blocks`` (layers ``layer0``.. of the stack) over x; with a
     cache, also return the blocks' new (ssm, conv) states as lists."""
     if cache is None:
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in blocks:
-            x, _, _ = mamba_block(blk, cfg, x)
+            if remat:
+                x = checkpoint(_block_out, blk, cfg, x, use_reentrant=False)
+            else:
+                x = _block_out(blk, cfg, x)
         return x, [], []
     ssm_n, conv_n = [], []
     for i, blk in enumerate(blocks):
@@ -165,6 +177,14 @@ class MambaLM(nn.Module):
         new_cache = None if cache is None else {
             "ssm": torch.stack(ssm_n), "conv": torch.stack(conv_n)}
         return L.apply_norm(cfg.norm, x, self.ln_f), new_cache
+
+
+def loss_fn(model: MambaLM, batch):
+    """The training objective: the forward, then vocab-chunked cross
+    entropy (the reference's ``loss_fn``)."""
+    from repro_torch.models.transformer import chunked_ce_loss
+    hidden, _ = model(batch["tokens"])
+    return chunked_ce_loss(model, model.cfg, hidden, batch["labels"])
 
 
 @torch.no_grad()

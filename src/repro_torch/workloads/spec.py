@@ -2,7 +2,8 @@
 
 GainSight's headline results are *suite-level* aggregates over MLPerf
 Inference and PolyBench, but a backend only understands its own native
-input (``GemmLayer`` lists for the systolic backend).  A
+input: ``GemmLayer`` lists (systolic), ``StreamBuilder`` op programs
+(cachesim/opstream), traceable functions (tpu_graph).  A
 :class:`WorkloadSpec` is the architecture-agnostic description that
 lowers itself to each backend's input via :meth:`WorkloadSpec.build`, so
 the same registered workload can be profiled on every backend it has a
@@ -32,8 +33,8 @@ import hashlib
 import json
 from typing import Callable, Mapping, Sequence
 
-# The reference's aliases, so a missing backend is reported by its canonical
-# name (tpu_graph: ROADMAP A10).  # repro: allow(registry-conformance)
+# Canonical-name map mirroring repro_torch.core.api's builtin aliases; kept
+# local (not imported) so this module stays torch-free at import time.
 _BACKEND_ALIASES = {"gpu": "cachesim", "tpu": "tpu_graph"}
 
 

@@ -3,16 +3,16 @@
 Registered with :func:`repro_torch.workloads.register_workload`:
 
   ``archs``      the architecture configs of ``repro_torch.configs``,
-                 lowered to decoder-block GEMM stacks (systolic) and op
-                 streams (cachesim / opstream)
+                 lowered to decoder-block GEMM stacks (systolic), op
+                 streams (cachesim / opstream) and the framework's own
+                 training step as an aten graph (tpu_graph)
   ``mlperf``     the MLPerf-Inference-style model set the paper's GPU
                  tables sweep
   ``polybench``  PolyBench kernels: 2mm/3mm GEMM chains + 2D/3D stencils
   ``cnn``        a standalone residual conv block
 
 Every lowering imports its backend module lazily - importing this module
-costs only ``repro_torch.configs`` (pure dataclasses).  The graph-walking
-``tpu_graph`` lowering of the reference is not ported (ROADMAP A10).
+costs only ``repro_torch.configs`` (pure dataclasses).
 """
 
 from __future__ import annotations
@@ -60,27 +60,48 @@ def transformer_program(cfg, seq: int, n_layers: int = 2):
     return program
 
 
+def tpu_step_workload(cfg, seq: int):
+    """(loss_fn, abstract params, batch specs) for the graph-walking
+    backend: the training loss of ``cfg`` at batch 1 and ``seq`` tokens as
+    a function of its parameters, over shapes and dtypes only (the model
+    is built on the meta device).  The families not ported yet raise
+    ``NotImplementedError`` (ROADMAP A9)."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.steps import abstract_params, make_loss_fn
+    from repro_torch.models.api import batch_specs, build
+    api = build(cfg, device="meta")
+    bspec = batch_specs(cfg, ShapeCell("p", "train", seq, 1))
+    return (make_loss_fn(api), abstract_params(api), bspec)
+
+
 # ---------------------------------------------------------------------------
 # "archs" suite
 # ---------------------------------------------------------------------------
 
-_ARCH_BACKENDS = ("systolic", "cachesim", "opstream")
+_ARCH_BACKENDS = ("systolic", "cachesim", "opstream", "tpu_graph")
 
 
 def _register_arch(arch: str) -> None:
     @register_workload(
         arch, suite="archs",
-        description=f"decoder-block stack of the {arch} config",
-        params={"seq": 128, "n_layers": 2},
+        description=f"decoder-block stack of the {arch} config "
+                    "(full config for trace backends, smoke for tpu)",
+        params={"seq": 128, "n_layers": 2, "tpu_smoke": True},
         backends=_ARCH_BACKENDS)
     def _build(params, backend, _arch=arch):
         from repro_torch.configs.base import get_config
-        # trace size is governed by seq, not params: full config dims
-        cfg = get_config(_arch, smoke=False)
         seq, n_layers = params["seq"], params["n_layers"]
         if backend == "systolic":
-            return transformer_gemms(cfg, seq, n_layers), {}
-        return transformer_program(cfg, seq, n_layers), {"sample": 8}
+            # trace size is governed by seq, not params: full config dims
+            return transformer_gemms(get_config(_arch, smoke=False), seq,
+                                     n_layers), {}
+        if backend in ("cachesim", "opstream"):
+            return (transformer_program(get_config(_arch, smoke=False),
+                                        seq, n_layers),
+                    {"sample": 8})
+        # tpu_graph: the framework profiling its own training step
+        cfg = get_config(_arch, smoke=params["tpu_smoke"])
+        return tpu_step_workload(cfg, seq), {"sample": 4}
 
 
 def _register_archs() -> None:

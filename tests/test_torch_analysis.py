@@ -586,17 +586,15 @@ def test_repo_tree_is_clean():
     assert run_check() == []
 
 
-def test_repo_tree_waives_exactly_the_tpu_alias():
-    """With suppressions ignored, the tree's one finding is the
-    ``"tpu" -> "tpu_graph"`` alias: ``tpu_graph`` is not ported yet, and
-    the waiver can hide nothing else."""
+def test_repo_tree_has_no_finding_with_waivers_ignored():
+    """With suppressions ignored the tree is still clean: the last waiver,
+    the ``"tpu" -> "tpu_graph"`` alias, went with the graph-walking
+    backend, which now declares it."""
     ctx = AnalysisContext(default_root())
     findings = [f for rule in default_rules() for f in rule.run(ctx)]
-    assert [(f.rule, f.path, f.line) for f in findings] == [
-        ("registry-conformance", "repro_torch/workloads/spec.py", 37)]
-    assert "'tpu' -> 'tpu_graph'" in findings[0].message
-    assert "_BACKEND_ALIASES" in ctx.source_lines(
-        ctx.abs(findings[0].path))[36]
+    assert findings == []
+    spec = ctx.source_lines(ctx.abs("repro_torch/workloads/spec.py"))
+    assert not any("repro: allow" in line for line in spec)
 
 
 def test_repo_schema_manifest_is_committed():

@@ -317,8 +317,7 @@ def test_same_workloads_lower_to_the_cache_backends():
 @pytest.mark.parametrize("name", _cache_workloads())
 def test_cache_lowerings_bit_equal(name):
     """Every workload with a cachesim/opstream lowering: same op stream,
-    same per-kernel counters, same run kwargs; the same content hash
-    except where the archs params differ (ROADMAP D5)."""
+    same per-kernel counters, same run kwargs; the same content hash."""
     from repro.backends.opstream import StreamBuilder as RefBuilder
     from repro_torch.backends.opstream import StreamBuilder as PortBuilder
     params = {"seq": 32} if ref_get_workload(name).suite == "archs" else {}
@@ -333,10 +332,7 @@ def test_cache_lowerings_bit_equal(name):
         assert [k.__dict__ for k in sb_p.kernels] == \
             [k.__dict__ for k in sb_r.kernels]
     spec_r, spec_p = ref_get_workload(name), port_get_workload(name)
-    if spec_r.suite == "archs":
-        assert spec_p.content_hash() != spec_r.content_hash()
-    else:
-        assert spec_p.content_hash() == spec_r.content_hash()
+    assert spec_p.content_hash() == spec_r.content_hash()
 
 
 def test_simulator_selection_and_config_errors():

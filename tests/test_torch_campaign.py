@@ -93,15 +93,8 @@ def test_plan_and_skipped_equal_the_reference(tmp_path, workloads):
     ref = _ref_runner(tmp_path, workloads=workloads,
                       backends=("systolic", "gpu", "opstream"))
     jobs, ref_jobs = runner.plan(), ref.plan()
-    if workloads == "all":
-        # the reference also lowers the archs to tpu_graph (ROADMAP A10)
-        # and carries a tpu_smoke param for it (D5)
-        ref_jobs = [j for j in ref_jobs if j.backend != "tpu_graph"]
-        assert [(j.workload, j.backend) for j in jobs] == \
-            [(j.workload, j.backend) for j in ref_jobs]
-    else:
-        assert [(j.workload, j.backend, j.params, j.cfg) for j in jobs] \
-            == [(j.workload, j.backend, j.params, j.cfg) for j in ref_jobs]
+    assert [(j.workload, j.backend, j.params, j.cfg) for j in jobs] \
+        == [(j.workload, j.backend, j.params, j.cfg) for j in ref_jobs]
     assert runner.skipped == ref.skipped
     assert len({j.key for j in jobs}) == len(jobs)
     assert not {j.key for j in jobs} & {j.key for j in ref.plan()}

@@ -3,8 +3,9 @@
 Every config module is a pure dataclass (``CONFIG`` and ``SMOKE``); the
 port has all ten of the reference's, in its order, and each registers an
 ``archs`` workload whose systolic GEMM list and op-stream program equal the
-reference's.  The content hashes of the ``archs`` specs differ by design
-(ROADMAP D5).  Nothing here builds a model: the ``moe``, ``vlm`` and
+reference's.  Every registered spec, the ``archs`` ones with their
+``tpu_graph`` lowering and ``tpu_smoke`` param included, hashes as the
+reference's.  Nothing here builds a model: the ``moe``, ``vlm`` and
 ``audio`` families are not ported (``models/api.py`` raises for them).
 """
 
@@ -16,9 +17,11 @@ import pytest
 
 from repro.backends.opstream import StreamBuilder as RefBuilder
 from repro.configs.base import ARCH_IDS as REF_ARCH_IDS
+from repro.workloads import available_workloads as ref_available_workloads
 from repro.workloads import get_workload as ref_get_workload
 from repro_torch.backends.opstream import StreamBuilder as PortBuilder
 from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.workloads import available_workloads
 from repro_torch.workloads import get_workload as port_get_workload
 
 # the configs this slice adds; the other three came with the models
@@ -51,12 +54,10 @@ def test_new_arch_lowerings_equal_the_reference(arch):
     ref_spec = ref_get_workload(arch).with_params(seq=32)
     port_spec = port_get_workload(arch).with_params(seq=32)
     assert port_spec.suite == ref_spec.suite == "archs"
-    # the reference also lowers to tpu_graph (ROADMAP A10) and carries a
-    # tpu_smoke param for it (D5), hence the different content hash
-    assert port_spec.backends + ("tpu_graph",) == ref_spec.backends
-    assert port_spec.params == tuple(p for p in ref_spec.params
-                                     if p[0] != "tpu_smoke")
-    assert port_spec.content_hash() != ref_spec.content_hash()
+    assert port_spec.backends == ref_spec.backends
+    assert "tpu_graph" in port_spec.backends
+    assert port_spec.params == ref_spec.params
+    assert port_spec.content_hash() == ref_spec.content_hash()
 
     (gemms_r, cfg_r), (gemms_p, cfg_p) = (ref_spec.build("systolic"),
                                           port_spec.build("systolic"))
@@ -75,3 +76,17 @@ def test_new_arch_lowerings_equal_the_reference(arch):
         np.testing.assert_array_equal(g, w)
     assert [k.__dict__ for k in sb_p.kernels] == \
         [k.__dict__ for k in sb_r.kernels]
+
+
+@pytest.mark.parametrize("name", ref_available_workloads())
+def test_every_registered_spec_hashes_as_the_reference(name):
+    """Name, suite, version, params, backends and ``content_hash()``: the
+    campaign cache key's workload half is the reference's for every
+    registered workload."""
+    assert available_workloads() == ref_available_workloads()
+    ref, port = ref_get_workload(name), port_get_workload(name)
+    assert (port.name, port.suite, port.version, port.params,
+            port.backends, port.description) == \
+        (ref.name, ref.suite, ref.version, ref.params, ref.backends,
+         ref.description)
+    assert port.content_hash() == ref.content_hash()

@@ -776,3 +776,51 @@ def test_short_lived_fraction_on_the_card_keeps_boundary_lifetimes(cuda):
             st = extract_lifetimes(time_cycles, addr, is_write, hit,
                                    device=dev)
             assert short_lived_fraction(st, 1e9, ret) == want, (dev, ret)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_route_backward_raises_on_the_card(cuda, dtype):
+    """K5 has no backward: a gradient through ``ops.ssd_scan`` on the card
+    raises instead of treating y as a constant; the forward launches once
+    and is the wrapper's own, bit for bit."""
+    from repro_torch.kernels.ssd_scan import kernel, ops
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, l, h, p, n = 1, 64, 4, 16, 16
+    x = torch.randn(b, l, h, p, generator=g, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, h, generator=g, device=cuda))
+    A = -torch.rand(h, generator=g, device=cuda)
+    B = torch.randn(b, l, n, generator=g, device=cuda).to(dtype)
+    C = torch.randn(b, l, n, generator=g, device=cuda).to(dtype)
+    with torch.no_grad():
+        want = ops.ssd_scan(x, dt, A, B, C, chunk=32)
+    x.requires_grad_(True)
+    before = kernel.ssd_scan_chunked.launches
+    y = ops.ssd_scan(x, dt, A, B, C, chunk=32)
+    assert kernel.ssd_scan_chunked.launches == before + 1
+    assert torch.equal(y.detach(), want)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        y.float().sum().backward()
+
+
+@pytest.mark.gpu
+def test_graph_walk_profiles_a_step_and_composes_on_the_card(cuda):
+    """``ProfileSession("tpu")`` on the TinyLlama smoke step: the walk
+    allocates nothing on the card; B7's composition equals the numpy
+    engine's (capacity exactly, energy 1e-9)."""
+    from repro_torch.core import ProfileSession
+    from repro_torch.workloads import get_workload
+    workload, cfg = get_workload("tinyllama_1_1b").with_params(
+        seq=32).build("tpu")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    session = ProfileSession("tpu", device=cuda).profile(workload, **cfg)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == before
+    session.analyze().compose()
+    got = session.composition("SMEM")
+    session.compose(engine="numpy")
+    want = session.composition("SMEM")
+    assert np.array_equal(got.capacity_fractions, want.capacity_fractions)
+    assert got.energy_j == pytest.approx(want.energy_j, rel=1e-9, abs=0)

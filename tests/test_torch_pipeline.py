@@ -203,10 +203,17 @@ def test_what_is_not_ported_says_so():
     sess.profile(_layers(port_systolic), rows=16, cols=16)
     with pytest.raises(ValueError, match="numpy"):
         sess.compose(engine="jax")
-    with pytest.raises(ValueError, match="no lowering for backend"):
-        port_get_workload("tinyllama_1_1b").build("tpu")
-    with pytest.raises(ValueError, match="unknown backend"):
-        PortSession("tpu_graph", device="cpu")
+    # the graph-walking backend is ported (tests/test_torch_tpu_graph.py),
+    # and its lowering of a family A9 has not ported says so
+    with pytest.raises(NotImplementedError, match="A9"):
+        port_get_workload("deepseek_moe_16b").build("tpu")
+    (fn, params, batch), cfg = port_get_workload("tinyllama_1_1b").build(
+        "tpu")
+    assert callable(fn) and params and sorted(batch) == ["labels",
+                                                         "tokens"]
+    assert cfg == {"sample": 4}
+    assert PortSession("tpu_graph", device="cpu").backend.name == \
+        "tpu_graph"
     # campaign and worker are ported (tests/test_torch_campaign.py), and
     # so is the contract analyzer (tests/test_torch_analysis.py)
     assert port_cli(["check", "--list-rules"]) == 0

@@ -457,10 +457,11 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_losses_of_unported_families_raise():
-    api = build(get_config("mamba2_130m", smoke=True), device="cpu")
+    # ssm and hybrid train since their loss was ported
+    # (tests/test_torch_ssm_loss.py); MoE, VLM and audio wait for A9
+    moe = dataclasses.replace(get_config(ARCH, smoke=True), family="moe")
     with pytest.raises(NotImplementedError, match="A9"):
-        api.loss({"tokens": torch.zeros(1, 4, dtype=torch.long),
-                  "labels": torch.zeros(1, 4, dtype=torch.long)})
+        build(moe, device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         T.TransformerLM(dataclasses.replace(get_config(ARCH, smoke=True),
                                             moe_experts=4), "cpu",
