@@ -43,8 +43,9 @@ version on the card, and drives the port's two paths:
   ``python -m repro_torch worker`` processes on a subset) with artifacts
   byte-identical to the thread scheduler's;
 * the graph-walking backend, once the campaign is done:
-  ``ProfileSession("tpu")`` on TinyLlama-1.1B's and Zamba2-2.7B's own
-  training steps at full width and depth (seq 128, batch 1, the ``archs``
+  ``ProfileSession("tpu")`` on the own training steps of TinyLlama-1.1B,
+  Zamba2-2.7B, deepseek-moe-16b, phi3.5-moe, InternVL2-1B and
+  Whisper-small at full width and depth (seq 128, batch 1, the ``archs``
   lowering's sample 4), captured as aten graphs over meta tensors (no device
   memory, no kernel launch), analyzed on the card and composed by B7
   against the numpy engine (capacity bit-identical, energy within 1e-9);
@@ -62,7 +63,15 @@ version on the card, and drives the port's two paths:
   depth (22 layers, bf16 parameters, fp32 AdamW state, per-layer remat,
   batch 4 x 2048) for five steps with the flash-attention forward and
   backward kernels, checked against the same model through the kernels'
-  plain versions in float32.
+  plain versions in float32;
+* the MoE, VLM and audio families: their smoke configs in float32 against
+  the JAX reference's golden fixtures (``family_golden``), then
+  deepseek-moe-16b, InternVL2-1B and Whisper-small as published, served
+  (two deepseek-moe-16b prefills bit-equal) and trained for three steps
+  (deepseek-moe-16b at full width and 4 layers), with the flash-attention
+  kernels launched as often as the config says and no plain-version call,
+  and one float32 step of each at reduced depth, kernel path against plain
+  path (``families``).
 
 It times each kernel at the shapes its path gives it: the lifetime scan
 right after the profiling path (also on one segment that crosses every
@@ -70,7 +79,8 @@ range of the kernel and on a random trace of the same length), the cache
 replay right after the GPU-cache path (at its L1 and L2 shapes, on a
 1 M-event mixed stream and on 1 M accesses in one set), the policy kernels
 after the sweep (at the 73-candidate grid on the full-depth systolic
-subpartition), the others after training.
+subpartition), the others after training (the attention kernels also at
+the families' training shapes, beside SDPA).
 
 Output: the ``nvidia-smi`` name/power-limit line, then one JSON object per
 phase (``device``, ``build`` with each kernel's registers, spills and
@@ -80,7 +90,8 @@ random, skewed, empty, near-2^59 and mixed streams, set counts at S - 1, S
 and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
 and address structures), ``cli``, ``check``, ``full``, ``sweep`` of the
 systolic session, ``gpu``, ``sweep`` of the GPU-cache session,
-``campaign``, ``tpu``, ``golden``, ``serve``, ``train_golden``, ``train``;
+``campaign``, ``tpu``, ``golden``, ``serve``, ``train_golden``, ``train``,
+``family_golden``, ``families``;
 ``ssd_no_backward`` after K5's ``kernel_check``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
@@ -248,9 +259,43 @@ CHECK_RULES = ("import-purity", "dtype-safety", "registry-conformance",
 CHECK_TIMEOUT_S = 120
 # the graph-walking backend on the framework's own training steps, at full
 # width and depth, through the archs lowering (its sample 4)
-TPU = {"archs": ("tinyllama_1_1b", "zamba2_2_7b"), "seq": 128, "batch": 1,
-       "tpu_smoke": False, "policies": ("refresh-free", "refresh-aware")}
+TPU = {"archs": ("tinyllama_1_1b", "zamba2_2_7b", "deepseek_moe_16b",
+                 "phi3_5_moe", "internvl2_1b", "whisper_small"),
+       "seq": 128, "batch": 1, "tpu_smoke": False,
+       "policies": ("refresh-free", "refresh-aware")}
 TPU_ENERGY_RTOL = 1e-9
+# the MoE, VLM and audio families at published widths (bf16, random weights
+# from a seed, attn_impl="flash"): served at batch 4 (prompt + greedy
+# tokens; InternVL2 adds its 256 vision embeddings, Whisper encodes 1500
+# frames and serves its 448-token decoder context), then trained for three
+# steps at batch 4 (deepseek-moe-16b at full width and 4 layers: 1 dense +
+# 3 MoE; its 28 layers of training state do not fit one card)
+FAMILY_ARCHS = ("deepseek_moe_16b", "internvl2_1b", "whisper_small")
+FAMILY_SERVE = {"deepseek_moe_16b": (1008, 16), "internvl2_1b": (1008, 16),
+                "whisper_small": (432, 16)}      # (prompt_len, gen)
+FAMILY_TRAIN = {"deepseek_moe_16b": {"seq": 2048, "n_layers": 4},
+                "internvl2_1b": {"seq": 2048}, "whisper_small": {"seq": 448}}
+FAMILY_BATCH = 4
+FAMILY_STEPS = 3
+FAMILY_SEEDS = {"param": 0, "token": 1, "data": 0}
+# the float32 step of each family on the kernel path against the plain path
+# (TRAIN_REL_TOL), at full width, reduced depth and batch
+FAMILY_F32 = {"n_layers": 2, "batch": 1}
+# the attention shapes the families' training paths give K2, K3 and K4
+# (B, H, KV, Sq, Skv, hd, causal): head dim 128, a GQA group of 7, the
+# Whisper encoder's 1500 keys (not a multiple of the 64-row tile), no mask,
+# and the Whisper decoder's 448-token causal self-attention
+FAMILY_ATTENTION = {"deepseek_moe_16b": (4, 16, 16, 2048, 2048, 128, True),
+                    "internvl2_1b": (4, 14, 2, 2304, 2304, 64, True),
+                    "whisper_small encoder": (4, 12, 12, 1500, 1500, 64,
+                                              False),
+                    "whisper_small decoder": (4, 12, 12, 448, 448, 64,
+                                              True)}
+# the families' smoke configs on the card against the JAX reference's
+# golden fixtures (tests/make_torch_golden.py --only families): float32
+# prefill logits abs, one train step's loss and grad norm relative
+FAMILY_GOLDEN_TOL = {"logits": 1e-4, "loss": 1e-5, "grad_norm": 1e-5,
+                     "lr": 1e-6}
 
 
 def emit(phase: str, **fields) -> None:
@@ -456,8 +501,9 @@ def within(got, want, tol, what) -> float:
 def phase_fa_check(torch, device) -> dict:
     """K2 against its plain version: every head dim the kernel is built for
     (80 is Zamba2-2.7B's), GQA, Sq != Skv, causal and not, ragged lengths,
-    the model layout's strided views, both dtypes, and the serving shape;
-    in bf16 (the tensor-core kernel) two runs of each bit-equal."""
+    the model layout's strided views, both dtypes, the serving shape and
+    the families' training shapes (bf16); in bf16 (the tensor-core kernel)
+    two runs of each bit-equal."""
     from repro_torch.kernels.flash_attention import kernel as k
     shapes = [  # (B, H, KV, Sq, Skv, hd, causal, model layout)
         (1, 2, 2, 128, 128, 16, True, False),
@@ -475,6 +521,8 @@ def phase_fa_check(torch, device) -> dict:
     cases, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     runs = [(s, dt) for s in shapes for dt in ("float32", "bfloat16")]
     runs.append(((4, 32, 32, 1024, 1024, 80, True, True), "bfloat16"))
+    runs += [((*shape, True), "bfloat16")
+             for shape in FAMILY_ATTENTION.values()]
     for i, ((B, H, KV, Sq, Skv, hd, causal, model), dt) in enumerate(runs):
         g = torch.Generator(device=device).manual_seed(100 + i)
         dtype = getattr(torch, dt)
@@ -612,7 +660,8 @@ def phase_golden(torch, np, device) -> None:
     load_reference_params(api.model, tree_from_flat(fx))
     tokens = torch.from_numpy(fx["tokens"]).to(device)
     reset_serving_counts()
-    out = generate(api, tokens, int(fx["prompt_len"]), int(fx["gen"]))
+    out = generate(api, {"tokens": tokens}, int(fx["prompt_len"]),
+                   int(fx["gen"]))
     counts = serving_counts()
     logits = out.prefill_logits.cpu().numpy()
     err = float(np.abs(logits - fx["prefill_logits"]).max())
@@ -655,12 +704,12 @@ def phase_serve(torch, device) -> dict:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in api.model.parameters())
     total = SERVE["prompt_len"] + SERVE["gen"]
-    tokens = api.make_batch(
+    batch = api.make_batch(
         torch.Generator(device=device).manual_seed(SERVE["token_seed"]),
-        ShapeCell("serve", "prefill", total, SERVE["batch"]))["tokens"]
+        ShapeCell("serve", "prefill", total, SERVE["batch"]))
 
     with first_calls() as seen:                           # warm-up
-        generate(api, tokens, SERVE["prompt_len"], 2)
+        generate(api, batch, SERVE["prompt_len"], 2)
     args, kw, (o, lse) = seen["flash_attention_fwd"]
     o_p, lse_p = fa_k.flash_attention_plain(*args, **kw)
     on_path = {"flash_attention_fwd": max(
@@ -673,7 +722,7 @@ def phase_serve(torch, device) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     reset_serving_counts()                   # main path starts here
-    out = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+    out = generate(api, batch, SERVE["prompt_len"], SERVE["gen"])
     counts = serving_counts()                # main path ends here
     peak = torch.cuda.max_memory_allocated()
     if counts != expected_counts(cfg):
@@ -685,10 +734,10 @@ def phase_serve(torch, device) -> dict:
         raise AssertionError("serve: prefill logits are not finite "
                              f"[batch, vocab]: {tuple(logits.shape)}")
     with plain_kernels():
-        plain = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+        plain = generate(api, batch, SERVE["prompt_len"], SERVE["gen"])
     bf16 = compare_paths(out, plain, SERVE_REL_TOL["bfloat16"], "bf16")
     api.model.cfg = dataclasses.replace(cfg, attn_impl="ref")
-    ref = generate(api, tokens, SERVE["prompt_len"], 2)
+    ref = generate(api, batch, SERVE["prompt_len"], 2)
     api.model.cfg = cfg
     bf16["ref_path_vs_plain_rel_err"] = float(
         (ref.prefill_logits.float() - plain.prefill_logits.float()).abs()
@@ -700,9 +749,9 @@ def phase_serve(torch, device) -> dict:
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     api = build(cfg32, device=device, generator=torch.Generator(
         device=device).manual_seed(SERVE["param_seed"]))
-    out32 = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+    out32 = generate(api, batch, SERVE["prompt_len"], SERVE["gen"])
     with plain_kernels():
-        plain32 = generate(api, tokens, SERVE["prompt_len"], SERVE["gen"])
+        plain32 = generate(api, batch, SERVE["prompt_len"], SERVE["gen"])
     f32 = compare_paths(out32, plain32, SERVE_REL_TOL["float32"], "float32")
     del api, out32, plain32
     torch.cuda.empty_cache()
@@ -842,8 +891,10 @@ def training_counts() -> tuple:
 
 def expected_train_counts(cfg) -> tuple:
     """Per step: the forward kernel in each layer's forward and again in its
-    recompute (remat), each backward kernel once per layer."""
-    n = cfg.n_layers
+    recompute (remat), each backward kernel once per layer; Whisper's
+    encoder and decoder self-attention layers each count (its
+    cross-attention runs no kernel)."""
+    n = cfg.n_layers + cfg.enc_layers
     return (2 * n if cfg.remat else n), n, n
 
 
@@ -869,8 +920,8 @@ def phase_bwd_check(torch, device) -> dict:
     """K3 and K4 against their plain version: tests/test_kernels.py's six
     shapes (GQA, ragged, Sq != Skv, causal and not), every head dim the
     kernels are built for, the model layout's strided views, both dtypes
-    (bf16 runs K3 and K4 on the tensor cores), the training shape; and two
-    runs of each bit-equal."""
+    (bf16 runs K3 and K4 on the tensor cores), the training shape, the
+    families' training shapes (bf16); and two runs of each bit-equal."""
     from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
     shapes = [  # (B, H, KV, Sq, Skv, hd, causal)
         (1, 2, 2, 128, 128, 64, True),
@@ -886,34 +937,38 @@ def phase_bwd_check(torch, device) -> dict:
         (1, 2, 1, 70, 150, 96, False),
         (2, 2, 2, 64, 100, 112, True),
     ]
+    runs = [(i, shape, dt) for i, shape in enumerate(shapes)
+            for dt in ("float32", "bfloat16")]
+    runs += [(len(shapes) + i, shape, "bfloat16")
+             for i, shape in enumerate(FAMILY_ATTENTION.values())]
     cases, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
-    for i, shape in enumerate(shapes):
-        for dt in ("float32", "bfloat16"):
-            model = i % 2 == 1 or shape == train_attention_shape()
-            q, k, v, o, lse, do = bwd_inputs(torch, device, shape,
-                                             getattr(torch, dt), model,
-                                             seed=400 + i)
-            causal = shape[-1]
-            before = training_counts()[1:]
-            got = bwd_k.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
-                                                 causal=causal)
-            again = bwd_k.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
-                                                   causal=causal)
-            torch.cuda.synchronize()
-            if training_counts()[1:] != (before[0] + 2, before[1] + 2):
-                raise AssertionError("bwd_check: the backward wrappers did "
-                                     "not launch their kernels")
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"bwd_check: two runs differ at "
-                                     f"{shape} {dt}")
-            want = bwd_k.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                   causal=causal)
-            what = f"flash_attention_bwd {dt} {shape}"
-            err = max(within(g, w, BWD_TOL[dt], f"{what} d{n}")
-                      for n, g, w in zip("qkv", got, want))
-            max_err[dt] = max(max_err[dt], err)
-            cases.append([*shape, model, dt, err])
-            del q, k, v, o, lse, do, got, again, want
+    for i, shape, dt in runs:
+        model = i % 2 == 1 or shape == train_attention_shape() or \
+            i >= len(shapes)
+        q, k, v, o, lse, do = bwd_inputs(torch, device, shape,
+                                         getattr(torch, dt), model,
+                                         seed=400 + i)
+        causal = shape[-1]
+        before = training_counts()[1:]
+        got = bwd_k.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
+                                             causal=causal)
+        again = bwd_k.flash_attention_bwd_bhsd(q, k, v, o, lse, do,
+                                               causal=causal)
+        torch.cuda.synchronize()
+        if training_counts()[1:] != (before[0] + 2, before[1] + 2):
+            raise AssertionError("bwd_check: the backward wrappers did "
+                                 "not launch their kernels")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"bwd_check: two runs differ at "
+                                 f"{shape} {dt}")
+        want = bwd_k.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                               causal=causal)
+        what = f"flash_attention_bwd {dt} {shape}"
+        err = max(within(g, w, BWD_TOL[dt], f"{what} d{n}")
+                  for n, g, w in zip("qkv", got, want))
+        max_err[dt] = max(max_err[dt], err)
+        cases.append([*shape, model, dt, err])
+        del q, k, v, o, lse, do, got, again, want
     emit("kernel_check", kernel="flash_attention_bwd (dq, dkv)",
          cases=len(cases), repeat_runs="bit-equal dq, dk, dv",
          dq_variants={d: bwd_k._kernel_variant(getattr(torch, d))
@@ -1187,95 +1242,427 @@ def phase_train(torch, device) -> dict:
     return {"counts": counts}
 
 
+def shape_fields(shape) -> dict:
+    B, H, KV, Sq, Skv, hd, causal = shape
+    return {"B": B, "H": H, "KV": KV, "Sq": Sq, "Skv": Skv, "hd": hd,
+            "causal": causal, "dtype": "bfloat16"}
+
+
+def time_attention(torch, device, shape, seed) -> list:
+    """K2, K3 and K4 at ``shape`` (B, H, KV, Sq, Skv, hd, causal; bf16, the
+    model layout), every call with the shape's own mask: each kernel's and
+    its plain version's time, its bound, and ``F.scaled_dot_product_attention``'s
+    forward (K2) or backward (one number for K3 + K4 together) at the same
+    shape.  Three ``kernel_row`` dicts, launches and errors left None."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    B, H, KV, Sq, Skv, hd, causal = shape
+    q, k, v, o, lse, do = bwd_inputs(torch, device, shape, torch.bfloat16,
+                                     True, seed=seed)
+    # (q, kv) pairs the mask leaves (causal: top-left aligned)
+    per_head = sum(min(i + 1, Skv) for i in range(Sq)) if causal \
+        else Sq * Skv
+    pairs = B * H * per_head
+    qb, kvb = B * H * Sq * hd * 2, B * KV * Skv * hd * 2
+
+    def timed(fn, runs):
+        return statistics.median(cuda_ms(fn, runs=runs))
+    fwd = kernel_row(
+        "flash_attention_fwd", FA_SOURCE, FA_REPLACES, None, None,
+        timed(lambda: fa_k.flash_attention_bhsd(q, k, v, causal=causal), 20),
+        timed(lambda: fa_k.flash_attention_plain(q, k, v, causal=causal), 5),
+        2 * qb + 2 * kvb + 4 * B * H * Sq, 4 * hd * pairs, BF16_FLOPS_PER_S,
+        timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 20))
+    _, delta = bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                            causal=causal)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    ref = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=True)
+    lib_ms = timed(lambda: torch.autograd.grad(ref, leaves, do,
+                                               retain_graph=True), 20)
+    # K3 reads q, o, dO, k, v, lse and writes dq, delta; K4 reads q, dO, k,
+    # v, lse, delta and writes the per-query-head dk, dv
+    bwd_bytes = 4 * qb + 2 * kvb + 2 * 4 * B * H * Sq
+    dq = kernel_row(
+        "flash_attention_bwd_dq", BWD_SOURCE, DQ_REPLACES, None, None,
+        timed(lambda: bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                   causal=causal), 20),
+        timed(lambda: bwd_k.bwd_dq_plain(q, k, v, o, lse, do,
+                                         causal=causal), 5),
+        bwd_bytes, 6 * hd * pairs, BF16_FLOPS_PER_S, lib_ms)
+    dkv = kernel_row(
+        "flash_attention_bwd_dkv", BWD_SOURCE, DKV_REPLACES, None, None,
+        timed(lambda: bwd_k.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    causal=causal), 20),
+        timed(lambda: bwd_k.bwd_dkv_plain(q, k, v, do, lse, delta,
+                                          causal=causal), 5),
+        bwd_bytes, 8 * hd * pairs, BF16_FLOPS_PER_S, lib_ms)
+    del q, k, v, o, lse, do, delta, leaves, ref
+    torch.cuda.empty_cache()
+    return [fwd, dq, dkv]
+
+
 def time_training_kernels(torch, device, train, bwd_check, fa_row) -> list:
     """K3 and K4 at the shape the training path launches them with; SDPA's
     backward (GQA) as the one library call computing both.  K2's time at
     that shape goes into its row (``train``) beside its serving numbers.
     K2's, K3's and K4's rows also carry ``fp32_ms``: the float32 FMA
     kernels on float32 inputs at the training shape."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import kernel as fa_k
     from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
     shape = train_attention_shape()
-    B, H, KV, S, _, hd, causal = shape
-    q, k, v, o, lse, do = bwd_inputs(torch, device, shape, torch.bfloat16,
-                                     True, seed=500)
-    pairs = B * H * S * (S + 1) // 2          # causal (q, kv) pairs needed
-    rows = B * H * S * hd * 2                 # one bf16 [B, H, S, hd]
-    kv = B * KV * S * hd * 2
-    fwd = kernel_row(
-        "flash_attention_fwd", FA_SOURCE, FA_REPLACES, train["counts"][0],
-        fa_row["max_abs_err"],
-        statistics.median(cuda_ms(
-            lambda: fa_k.flash_attention_bhsd(q, k, v, causal=True),
-            runs=20)),
-        statistics.median(cuda_ms(
-            lambda: fa_k.flash_attention_plain(q, k, v, causal=True),
-            runs=5)),
-        2 * rows + 2 * kv + 4 * B * H * S, 4 * hd * pairs, BF16_FLOPS_PER_S,
-        statistics.median(cuda_ms(
-            lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), runs=20)))
+    causal = shape[-1]
+    fwd, dq_row, dkv_row = time_attention(torch, device, shape, seed=500)
     # K2's row keeps its serving-shape numbers; these are the training's
     fa_row["train"] = {key: fwd[key] for key in (
-        "launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-    fa_row["train"]["shape"] = {"B": B, "H": H, "KV": KV, "Sq": S, "Skv": S,
-                                "hd": hd, "causal": causal,
-                                "dtype": "bfloat16"}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    fa_row["train"].update(launches=train["counts"][0],
+                           shape=shape_fields(shape))
     # the float32 FMA kernels at the same shape (float32 inputs)
     q32, k32, v32, o32, lse32, do32 = bwd_inputs(
         torch, device, shape, torch.float32, True, seed=501)
     fa_row["fp32_ms"] = statistics.median(cuda_ms(
-        lambda: fa_k.flash_attention_bhsd(q32, k32, v32, causal=True),
+        lambda: fa_k.flash_attention_bhsd(q32, k32, v32, causal=causal),
         runs=10))
     fa_row["fp32_ms_shape"] = "train"
-    _, delta32 = bwd_k.flash_attention_bwd_dq(q32, k32, v32, o32, lse32, do32)
-    dq_fp32_ms = statistics.median(cuda_ms(
+    _, delta32 = bwd_k.flash_attention_bwd_dq(q32, k32, v32, o32, lse32, do32,
+                                              causal=causal)
+    dq_row["fp32_ms"] = statistics.median(cuda_ms(
         lambda: bwd_k.flash_attention_bwd_dq(q32, k32, v32, o32, lse32,
-                                             do32), runs=10))
-    dkv_fp32_ms = statistics.median(cuda_ms(
+                                             do32, causal=causal), runs=10))
+    dkv_row["fp32_ms"] = statistics.median(cuda_ms(
         lambda: bwd_k.flash_attention_bwd_dkv(q32, k32, v32, do32, lse32,
-                                              delta32), runs=10))
+                                              delta32, causal=causal),
+        runs=10))
     del q32, k32, v32, o32, lse32, do32, delta32
-    _, delta = bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do)
-    dq_ms = statistics.median(cuda_ms(
-        lambda: bwd_k.flash_attention_bwd_dq(q, k, v, o, lse, do), runs=20))
-    dkv_ms = statistics.median(cuda_ms(
-        lambda: bwd_k.flash_attention_bwd_dkv(q, k, v, do, lse, delta),
-        runs=20))
-    dq_plain = statistics.median(cuda_ms(
-        lambda: bwd_k.bwd_dq_plain(q, k, v, o, lse, do), runs=5))
-    dkv_plain = statistics.median(cuda_ms(
-        lambda: bwd_k.bwd_dkv_plain(q, k, v, do, lse, delta), runs=5))
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                         enable_gqa=True)
-    lib_ms = statistics.median(cuda_ms(
-        lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-        runs=20))
-    common = dict(shape={"B": B, "H": H, "KV": KV, "Sq": S, "Skv": S,
-                         "hd": hd, "causal": causal, "dtype": "bfloat16"},
-                  library_call="backward of F.scaled_dot_product_attention("
-                               "is_causal=True, enable_gqa=True): one "
-                               "number for K3 + K4 together")
-    err = bwd_check["max_abs_err"]
-    # K3 reads q, o, dO, k, v, lse and writes dq, delta; K4 reads q, dO, k,
-    # v, lse, delta and writes the per-query-head dk, dv
-    dq_row = kernel_row(
-        "flash_attention_bwd_dq", BWD_SOURCE, DQ_REPLACES, train["counts"][1],
-        err, dq_ms, dq_plain, 4 * rows + 2 * kv + 2 * 4 * B * H * S,
-        6 * hd * pairs, BF16_FLOPS_PER_S, lib_ms,
-        variant=bwd_k._kernel_variant(torch.bfloat16), fp32_ms=dq_fp32_ms,
-        **common)
-    dkv_row = kernel_row(
-        "flash_attention_bwd_dkv", BWD_SOURCE, DKV_REPLACES,
-        train["counts"][2], err, dkv_ms, dkv_plain,
-        4 * rows + 2 * kv + 2 * 4 * B * H * S, 8 * hd * pairs,
-        BF16_FLOPS_PER_S, lib_ms,
-        variant=bwd_k._kernel_variant(torch.bfloat16),
-        fp32_ms=dkv_fp32_ms, **common)
+    for i, row in ((1, dq_row), (2, dkv_row)):
+        row.update(launches=train["counts"][i],
+                   max_abs_err=bwd_check["max_abs_err"],
+                   variant=bwd_k._kernel_variant(torch.bfloat16),
+                   shape=shape_fields(shape),
+                   library_call="backward of F.scaled_dot_product_attention("
+                                f"is_causal={causal}, enable_gqa=True): one "
+                                "number for K3 + K4 together")
     return [dq_row, dkv_row]
+
+
+@contextlib.contextmanager
+def no_plain_calls(what):
+    """Count every call of the attention kernels' plain versions for the
+    duration; raise if there was one (on the card the path must run the
+    kernels, never their plain versions)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import kernel_bwd as bwd_k
+    targets = [(fa_k, "flash_attention_plain"),
+               (bwd_k, "flash_attention_bwd_plain"),
+               (bwd_k, "bwd_dq_plain"), (bwd_k, "bwd_dkv_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    calls = {name: 0 for _, name in targets}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    if any(calls.values()):
+        raise AssertionError(f"{what}: plain-version calls on the card "
+                             f"{calls}")
+
+
+def family_serving_counts(cfg) -> int:
+    """K2 launches a prefill makes: Whisper's encoder and its cache-less
+    decoder prefill run the kernel in every layer; the transformer's
+    prefill threads its cache and takes the blockwise path (no kernel), as
+    the reference's does; decode steps run none."""
+    return cfg.enc_layers + cfg.n_layers if cfg.family == "audio" else 0
+
+
+def phase_family_golden(torch, np, device) -> None:
+    """The MoE, VLM and audio smoke configs on the card, in float32, against
+    the JAX reference's golden fixtures: ``generate`` (prefill logits,
+    greedy tokens) and one training step (loss, grad norm, lr), with the
+    kernels where the fixture's ``attn_impl`` is "flash" (InternVL2's smoke
+    head dim, 14, is not one the kernels take: "ref")."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.convert import load_reference_params, tree_from_flat
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.api import build
+
+    runs = {}
+    for arch in FAMILY_ARCHS:
+        fx = dict(np.load(ROOT / "tests" / "fixtures" / "torch" /
+                          f"golden_{arch}_smoke.npz"))
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  attn_impl=str(fx["attn_impl"]),
+                                  param_dtype="float32")
+        api = build(cfg, device=device)
+        load_reference_params(api.model,
+                              tree_from_flat(fx, "param:", api.model))
+
+        def part(prefix):
+            return {k[len(prefix):]: torch.from_numpy(v).to(device)
+                    for k, v in fx.items() if k.startswith(prefix)}
+        flash = cfg.attn_impl == "flash"
+        reset_training_counts()
+        with no_plain_calls(f"family_golden {arch}"):
+            out = generate(api, part("serve:"), int(fx["prompt_len"]),
+                           int(fx["gen"]))
+        serve_counts = training_counts()
+        want = (family_serving_counts(cfg) if flash else 0, 0, 0)
+        if serve_counts != want:
+            raise AssertionError(f"family_golden {arch}: serving launches "
+                                 f"{serve_counts}, expected {want}")
+        logits = out.prefill_logits.cpu().numpy()
+        err = float(np.abs(logits - fx["prefill_logits"]).max())
+        tol = FAMILY_GOLDEN_TOL["logits"]
+        if not np.isfinite(logits).all() or err > tol:
+            raise AssertionError(f"family_golden {arch}: prefill logits "
+                                 f"differ from the JAX reference by {err}")
+        tokens = out.tokens.cpu().numpy()
+        if not np.array_equal(tokens, fx["greedy_tokens"]):
+            raise AssertionError(f"family_golden {arch}: greedy tokens "
+                                 f"{tokens.tolist()} != "
+                                 f"{fx['greedy_tokens'].tolist()}")
+        opt = make_optimizer(cfg, total_steps=1)
+        params = dict(api.model.named_parameters())
+        reset_training_counts()
+        with no_plain_calls(f"family_golden {arch} step"):
+            _, _, m = make_train_step(api, opt)(params, opt.init(params),
+                                                part("train:"))
+        step_counts = training_counts()
+        want = expected_train_counts(cfg) if flash else (0, 0, 0)
+        if step_counts != tuple(want):
+            raise AssertionError(f"family_golden {arch}: step launches "
+                                 f"{step_counts}, expected {want}")
+        rel = {}
+        for k in ("loss", "grad_norm", "lr"):
+            rel[k] = abs(float(m[k]) - float(fx[k])) / abs(float(fx[k]))
+            if not math.isfinite(float(m[k])) or \
+                    rel[k] > FAMILY_GOLDEN_TOL[k]:
+                raise AssertionError(f"family_golden {arch}: {k} "
+                                     f"{float(m[k])} != {float(fx[k])}")
+        runs[arch] = {"attn_impl": cfg.attn_impl,
+                      "max_abs_logit_err": err, "tokens_equal": True,
+                      "step_rel_err": rel,
+                      "serve_launches": serve_counts,
+                      "step_launches": step_counts}
+        del api, params, out
+    emit("family_golden", config="smoke, float32", tolerance=FAMILY_GOLDEN_TOL,
+         runs=runs)
+
+
+def serve_family(torch, device, arch) -> dict:
+    """One family served as published (bf16, kernels on): a warm-up, then
+    the main run, each launch counted; deepseek-moe-16b's prefill once more,
+    which must give the same bits."""
+    from repro_torch.configs.base import ShapeCell, get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash")
+    prompt_len, gen = FAMILY_SERVE[arch]
+    t0 = time.perf_counter()
+    api = build(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(FAMILY_SEEDS["param"]))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in api.model.parameters())
+    batch = api.make_batch(
+        torch.Generator(device=device).manual_seed(FAMILY_SEEDS["token"]),
+        ShapeCell("serve", "prefill", prompt_len + gen, FAMILY_BATCH))
+    generate(api, batch, prompt_len, 2)                   # warm-up
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_training_counts()                  # main path starts here
+    with no_plain_calls(f"families serve {arch}"):
+        out = generate(api, batch, prompt_len, gen)
+    counts = training_counts()               # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = (family_serving_counts(cfg), 0, 0)
+    if counts != want:
+        raise AssertionError(f"families serve {arch}: (fwd, dq, dkv) "
+                             f"launches {counts}, expected {want}")
+    logits = out.prefill_logits
+    if tuple(logits.shape) != (FAMILY_BATCH, cfg.vocab) or \
+            not bool(logits.float().isfinite().all()):
+        raise AssertionError(f"families serve {arch}: prefill logits are "
+                             f"not finite [batch, vocab]")
+    row = {"n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "d_model": cfg.d_model, "params": n_params,
+           "param_dtype": cfg.param_dtype, "batch": FAMILY_BATCH,
+           "prompt_len": prompt_len, "gen": gen, "init_s": init_s,
+           "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+           "decode_tokens_per_s": FAMILY_BATCH * (gen - 1) / out.decode_s,
+           "max_memory_allocated": peak, "k2_launches": counts[0],
+           "tokens_batch0": out.tokens[0].tolist()}
+    if cfg.moe_experts:
+        again, _ = api.prefill(batch)
+        if not torch.equal(again, logits):
+            raise AssertionError(f"families serve {arch}: two prefills of "
+                                 f"the batch differ")
+        row["repeat_prefill_bit_equal"] = True
+    del api, batch, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_family(torch, device, arch) -> dict:
+    """One family trained (bf16 parameters, fp32 AdamW, remat, kernels on)
+    for FAMILY_STEPS steps at batch FAMILY_BATCH; the launches of each step
+    against the config's count."""
+    from repro_torch.configs.base import ShapeCell, get_config
+    from repro_torch.data import SyntheticLMDataset, to_device
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.api import build
+
+    tr = FAMILY_TRAIN[arch]
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash",
+                              n_layers=tr.get("n_layers",
+                                              get_config(arch).n_layers))
+    shape = ShapeCell("train", "train", tr["seq"], FAMILY_BATCH)
+    api = build(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(FAMILY_SEEDS["param"]))
+    opt = make_optimizer(cfg, total_steps=FAMILY_STEPS)
+    step_fn = make_train_step(api, opt)
+    params = dict(api.model.named_parameters())
+    state = opt.init(params)
+    n_params = sum(p.numel() for p in params.values())
+    ds = SyntheticLMDataset(cfg, shape, seed=FAMILY_SEEDS["data"])
+    batches = [to_device(ds.get_batch(i), device)
+               for i in range(FAMILY_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, per_step = [], []
+    reset_training_counts()                  # main path starts here
+    with no_plain_calls(f"families train {arch}"):
+        for batch in batches:
+            c0 = training_counts()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            params, state, m = step_fn(params, state, batch)
+            torch.cuda.synchronize()
+            steps.append({"step_s": time.perf_counter() - ts,
+                          "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"])})
+            per_step.append([a - b for a, b in zip(training_counts(), c0)])
+    counts = training_counts()               # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = list(expected_train_counts(cfg))
+    if any(c != want for c in per_step):
+        raise AssertionError(f"families train {arch}: (fwd, dq, dkv) "
+                             f"launches per step {per_step}, expected {want}")
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+               for s in steps):
+        raise AssertionError(f"families train {arch}: non-finite {steps}")
+    del api, params, state, step_fn, batches
+    torch.cuda.empty_cache()
+    steady = statistics.median([s["step_s"] for s in steps[1:]])
+    # every position a step runs: text tokens, vision embeddings, frames
+    positions = FAMILY_BATCH * (tr["seq"] + cfg.vision_tokens + cfg.enc_seq)
+    return {"n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+            "params": n_params, "batch": FAMILY_BATCH, "seq": tr["seq"],
+            "vision_tokens": cfg.vision_tokens, "frames": cfg.enc_seq,
+            "first_step_s": steps[0]["step_s"],
+            "median_step_s_2_to_3": steady,
+            "tokens_per_s": FAMILY_BATCH * tr["seq"] / steady,
+            "positions_per_s": positions / steady, "steps": steps,
+            "max_memory_allocated": peak, "launches": counts,
+            "launches_per_step": per_step, "expected_per_step": want}
+
+
+def family_f32_step(torch, device, arch) -> dict:
+    """One float32 forward and backward of the family at full width and
+    FAMILY_F32's depth and batch, kernel path against plain path (gated by
+    TRAIN_REL_TOL)."""
+    from repro_torch.configs.base import ShapeCell, get_config
+    from repro_torch.data import SyntheticLMDataset, to_device
+    from repro_torch.models.api import build
+
+    base = get_config(arch)
+    cut = {"n_layers": FAMILY_F32["n_layers"]}
+    if base.enc_layers:
+        cut["enc_layers"] = FAMILY_F32["n_layers"]
+    cfg = dataclasses.replace(base, attn_impl="flash", param_dtype="float32",
+                              **cut)
+    api = build(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(FAMILY_SEEDS["param"]))
+    ds = SyntheticLMDataset(cfg, ShapeCell("f32", "train",
+                                           FAMILY_TRAIN[arch]["seq"],
+                                           FAMILY_F32["batch"]),
+                            seed=FAMILY_SEEDS["data"])
+    batch = to_device(ds.get_batch(0), device)
+    reset_training_counts()
+    kern = loss_and_grads(torch, api, batch)
+    counts = training_counts()
+    with plain_kernels():
+        plain = loss_and_grads(torch, api, batch)
+    f32 = grad_distance(torch, kern, plain)
+    f32.update(launches=counts, **cut)
+    del api, kern, plain, batch
+    torch.cuda.empty_cache()
+    n = cfg.n_layers + cfg.enc_layers
+    if counts != (2 * n, n, n):
+        raise AssertionError(f"families f32 {arch}: launches {counts}")
+    if f32["loss_rel_err"] > TRAIN_REL_TOL["loss"] or \
+            f32["grad_max_rel_2norm_err"] > TRAIN_REL_TOL["grad"]:
+        raise AssertionError(f"families f32 {arch}: kernel path differs "
+                             f"from the plain path: {f32}")
+    return f32
+
+
+def phase_families(torch, device) -> dict:
+    """The MoE, VLM and audio families on the card: each served as
+    published, then trained (deepseek-moe-16b at full width and 4 layers),
+    then one float32 step at reduced depth, kernel path against plain path.
+    The served model is freed before its training starts.  Returns each
+    family's K2/K3/K4 launches."""
+    serve, train, f32 = {}, {}, {}
+    for arch in FAMILY_ARCHS:
+        serve[arch] = serve_family(torch, device, arch)
+        train[arch] = train_family(torch, device, arch)
+        f32[arch] = family_f32_step(torch, device, arch)
+    emit("families", param_seed=FAMILY_SEEDS["param"],
+         attn_impl="flash", serve=serve, train=train,
+         kernel_vs_plain_float32=f32, tolerance=TRAIN_REL_TOL)
+    return {arch: {"serve_k2_launches": serve[arch]["k2_launches"],
+                   "train_launches": train[arch]["launches"]}
+            for arch in FAMILY_ARCHS}
+
+
+def time_family_kernels(torch, device, rows, families) -> None:
+    """K2, K3 and K4 at the families' attention shapes (``time_attention``,
+    each with its own mask), added to the K2, K3 and K4 rows with the
+    families' launches."""
+    by_name = {r["name"]: r for r in rows}
+    out = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [],
+           "flash_attention_bwd_dkv": []}
+    for i, (what, shape) in enumerate(FAMILY_ATTENTION.items()):
+        for r in time_attention(torch, device, shape, seed=600 + i):
+            out[r["name"]].append({"path": what, "shape": shape_fields(shape),
+                                   **{key: r[key] for key in (
+                                       "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "bytes",
+                                       "flops")}})
+    for i, (name, entries) in enumerate(out.items()):    # fwd, dq, dkv
+        by_name[name]["family_shapes"] = entries
+        by_name[name]["family_launches"] = {
+            arch: {"serve": f["serve_k2_launches"] if i == 0 else 0,
+                   "train": f["train_launches"][i]}
+            for arch, f in families.items()}
+    by_name["flash_attention_bwd_dq"]["family_library_call"] = (
+        "backward of F.scaled_dot_product_attention(is_causal=<the shape's>, "
+        "enable_gqa=True): one number for K3 + K4 together")
 
 
 def kernel_label(mangled: str) -> str:
@@ -3341,8 +3728,11 @@ def main() -> int:
     serve = phase_serve(torch, device)
     phase_train_golden(torch, np, device)
     train = phase_train(torch, device)
+    phase_family_golden(torch, np, device)
+    families = phase_families(torch, device)
     rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
     rows += time_training_kernels(torch, device, train, bwd_check, rows[1])
+    time_family_kernels(torch, device, rows, families)
     rows.append(b6_row)
     rows += b7_rows
     print(json.dumps({"kernels": rows}), flush=True)

@@ -18,6 +18,10 @@ from repro_torch.core.devices import DeviceModel
 from repro_torch.core.lifetime import LifetimeStats
 from repro_torch.core.trace import Trace, make_trace
 
+# the reference's stacked per-layer groups: a module's ``<group>.<i>.<leaf>``
+# parameter is row i of the tree's ``<group>/<leaf>``
+STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers")
+
 
 def trace_from_arrays(time_cycles, addr, is_write, hit=None,
                       subpartition=None, names=("mem",),
@@ -50,10 +54,13 @@ def load_reference_params(model: torch.nn.Module, tree: dict) -> None:
     """Copy a reference parameter tree into ``model`` in place.
 
     ``tree`` mirrors the reference's params: nested dicts of numpy arrays,
-    with the per-layer leaves stacked under ``tree["layers"]`` with a
+    with the per-layer leaves of each stacked group (``STACKED``: the
+    ``layers`` of every family, an MoE config's ``dense_layers``, Whisper's
+    ``enc_layers`` and ``dec_layers``) stacked under the group's name with a
     leading ``[n_layers]`` axis, at any depth (``layers/in_proj`` of the
-    Mamba-2 stack, ``layers/attn/wq`` of the dense LM); leaf ``i`` of
-    ``tree["layers"][a][b]`` goes to ``model.layers[i].a.b``.  Each leaf is
+    Mamba-2 stack, ``layers/attn/wq`` of the dense LM,
+    ``layers/moe/shared/w_up``); leaf ``i`` of ``tree["layers"][a][b]``
+    goes to ``model.layers[i].a.b``.  Each leaf is
     cast to its parameter's dtype: numpy has no bfloat16, so a caller hands
     bf16 leaves over as float32, and the cast back is exact.  Raises
     ``KeyError``/``ValueError`` on a missing or extra leaf or a shape
@@ -61,8 +68,8 @@ def load_reference_params(model: torch.nn.Module, tree: dict) -> None:
     used = set()
     for name, param in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
-            key = ("layers", *parts[2:])
+        if parts[0] in STACKED:
+            key = (parts[0], *parts[2:])
             arr = np.asarray(_leaf(tree, key))[int(parts[1])]
         else:
             key = tuple(parts)
@@ -85,8 +92,8 @@ def export_params(model) -> dict:
     """The inverse of :func:`load_reference_params`: the parameters of
     ``model`` (a module, or a mapping of parameter names to tensors such as
     their gradients or optimizer moments) as a tree of float32 numpy arrays
-    in the reference's layout, per-layer leaves stacked under ``"layers"``
-    (bf16 widens to float32 exactly)."""
+    in the reference's layout, per-layer leaves stacked under their group's
+    name (``STACKED``; bf16 widens to float32 exactly)."""
     named = (model.named_parameters() if isinstance(model, torch.nn.Module)
              else model.items())
     tree: dict = {}
@@ -94,8 +101,9 @@ def export_params(model) -> dict:
     for name, param in named:
         parts = name.split(".")
         arr = param.detach().float().cpu().numpy()
-        if parts[0] == "layers":
-            stacked.setdefault(("layers", *parts[2:]), {})[int(parts[1])] = arr
+        if parts[0] in STACKED:
+            stacked.setdefault((parts[0], *parts[2:]),
+                               {})[int(parts[1])] = arr
         else:
             _put(tree, tuple(parts), arr)
     for key, rows in stacked.items():
@@ -124,9 +132,12 @@ def _paths(node, path=()):
         yield path
 
 
-def tree_from_flat(flat, prefix: str = "param:") -> dict:
+def tree_from_flat(flat, prefix: str = "param:", model=None) -> dict:
     """``{"<prefix>a/b/c": array}`` (as a golden ``.npz`` stores a
-    parameter tree) -> nested dicts ``{"a": {"b": {"c": array}}}``."""
+    parameter tree) -> nested dicts ``{"a": {"b": {"c": array}}}``.  With
+    ``model``, a top-level leaf stored cut to its leading rows (Whisper's
+    32768-row ``dec_pos``, of which a smoke run reads the first few) is
+    padded with zeros to the model's shape: rows no run reads."""
     tree: dict = {}
     for key in flat:
         if not key.startswith(prefix):
@@ -136,4 +147,11 @@ def tree_from_flat(flat, prefix: str = "param:") -> dict:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = np.asarray(flat[key])
+    shapes = dict(model.named_parameters()) if model is not None else {}
+    for name, leaf in tree.items():
+        if name in shapes and not isinstance(leaf, dict):
+            rows = shapes[name].shape[0] - leaf.shape[0]
+            if rows > 0:
+                tree[name] = np.pad(leaf, [(0, rows)] + [(0, 0)] *
+                                    (leaf.ndim - 1))
     return tree

@@ -37,15 +37,15 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.no_grad()
-def generate(api: ModelApi, tokens: torch.Tensor, prompt_len: int,
-             gen: int) -> Generation:
-    """The reference's serving loop: prefill over all ``tokens`` (prompt +
-    generation region, which sizes the cache), then ``gen - 1`` greedy
+def generate(api: ModelApi, batch, prompt_len: int, gen: int) -> Generation:
+    """The reference's serving loop: prefill over the whole batch (its
+    ``tokens``, prompt + generation region, size the cache; a VLM's
+    ``vision`` and Whisper's ``frames`` go in too), then ``gen - 1`` greedy
     decode steps at positions ``prompt_len + i``."""
-    device = tokens.device
+    device = batch["tokens"].device
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = api.prefill({"tokens": tokens})
+    logits, cache = api.prefill(batch)
     prefill_logits = logits
     tok = torch.argmax(logits, dim=-1)
     _sync(device)
@@ -88,8 +88,8 @@ def main(argv=None, *, device=None):
     shape = ShapeCell("serve", "prefill", total, args.batch)
     batch = api.make_batch(torch.Generator(device=device).manual_seed(1),
                            shape)
-    out = generate(api, batch["tokens"][:, :total], args.prompt_len,
-                   args.gen)
+    batch["tokens"] = batch["tokens"][:, :total]
+    out = generate(api, batch, args.prompt_len, args.gen)
 
     toks_per_s = args.batch * (args.gen - 1) / max(out.decode_s, 1e-9)
     print(f"prefill: {out.prefill_s:.3f}s for {args.batch}x{total}")

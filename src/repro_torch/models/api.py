@@ -7,11 +7,13 @@
   batch_specs(cfg, shape)       -> TensorSpec per batch entry
   make_batch(cfg, generator, shape) -> concrete synthetic batch
 
-Families ``dense``, ``ssm`` and ``hybrid`` are ported, each with its
-training loss; the others (MoE, VLM, audio) raise ``NotImplementedError``
-(ROADMAP A9).  ``build(cfg, device="meta")`` gives parameters with shapes
-and dtypes but no storage, drawing nothing: the graph-walking backend
-captures a step over them (``launch/steps.py``, ``abstract_params``).
+Every family of the reference is ported: ``dense``, ``moe`` and ``vlm``
+(``transformer``), ``ssm``, ``hybrid`` and ``audio`` (``whisper``), each
+with its training loss.  ``build(cfg, device="meta")`` gives parameters
+with shapes and dtypes but no storage, drawing nothing: the graph-walking
+backend captures a step over them (``launch/steps.py``,
+``abstract_params``).  ``prefill`` takes the whole batch: the VLM's
+``vision`` and Whisper's ``frames`` go in beside the tokens.
 Tokens are int64, torch's index type (the reference uses int32).
 """
 
@@ -48,7 +50,7 @@ class ModelApi:
         return self.loss_fn(self.model, batch)
 
     def prefill(self, batch):
-        return self.prefill_fn(self.model, batch["tokens"])
+        return self.prefill_fn(self.model, batch)
 
     def decode(self, cache, token, index):
         return self.decode_fn(self.model, cache, token, index)
@@ -66,21 +68,27 @@ def build(cfg: ArchConfig, device=None, generator=None) -> ModelApi:
     if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as T
         return ModelApi(cfg, T.TransformerLM(cfg, device, generator),
-                        T.prefill, T.decode_step, T.loss_fn)
+                        lambda m, b: T.prefill(m, b["tokens"],
+                                               b.get("vision")),
+                        T.decode_step, T.loss_fn)
     if fam == "ssm":
         from repro_torch.models import mamba2 as M
-        return ModelApi(cfg, M.MambaLM(cfg, device, generator), M.prefill,
+        return ModelApi(cfg, M.MambaLM(cfg, device, generator),
+                        lambda m, b: M.prefill(m, b["tokens"]),
                         M.decode_step, M.loss_fn)
     if fam == "hybrid":
         from repro_torch.models import hybrid as H
-        return ModelApi(cfg, H.HybridLM(cfg, device, generator), H.prefill,
+        return ModelApi(cfg, H.HybridLM(cfg, device, generator),
+                        lambda m, b: H.prefill(m, b["tokens"]),
                         H.decode_step, H.loss_fn)
-    if fam in ("moe", "vlm", "audio"):
-        raise NotImplementedError(
-            f"family {fam!r} is not ported to repro_torch yet (ROADMAP A9)")
+    if fam == "audio":
+        from repro_torch.models import whisper as W
+        return ModelApi(cfg, W.WhisperLM(cfg, device, generator),
+                        lambda m, b: W.prefill(m, b["tokens"], b["frames"]),
+                        W.decode_step, W.loss_fn)
     raise ValueError(f"unknown family {fam}")
 
 

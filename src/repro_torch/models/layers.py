@@ -1,11 +1,11 @@
 """Shared model building blocks of the serving and training paths.
 
-Parameters live in ``nn.Module``s (``Attention``, ``MLP``) laid out as in
-the JAX package (``x @ W`` with ``W`` of shape [in, out]), so a reference
-parameter tree loads without transposes (``repro_torch.convert``).  Modules
-take an explicit device and generator at init; the random init mirrors the
-reference's distributions (dense: normal / sqrt(fan_in); norms 1; biases
-0) without being bit-identical.
+Parameters live in ``nn.Module``s (``Attention``, ``MLP``, ``MoE``) laid
+out as in the JAX package (``x @ W`` with ``W`` of shape [in, out]), so a
+reference parameter tree loads without transposes (``repro_torch.convert``).
+Modules take an explicit device and generator at init; the random init
+mirrors the reference's distributions (dense: normal / sqrt(fan_in); norms
+1; biases 0) without being bit-identical.
 
 Products that the reference asks in fp32 (``preferred_element_type``) are
 taken on float32 copies of their inputs.  There is no mesh in this package
@@ -278,7 +278,7 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU) and MoE
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
@@ -297,5 +297,104 @@ def mlp_block(p, x, cfg=None):
     return y
 
 
+class MoE(nn.Module):
+    """``router`` [D, E] (float32 whatever the parameter dtype),
+    ``we_gate``/``we_up`` [E, D, Fe], ``we_down`` [E, Fe, D] and, where the
+    config has shared experts, a ``shared`` SwiGLU MLP of width
+    Fe * ``moe_shared_experts`` (the reference's ``init_moe``)."""
+
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        D = cfg.d_model
+        E, Fe = cfg.moe_experts, cfg.moe_d_ff or cfg.d_ff
+        self.router = dense_init((D, E), torch.float32, device, generator)
+        self.we_gate = dense_init((E, D, Fe), dtype, device, generator)
+        self.we_up = dense_init((E, D, Fe), dtype, device, generator)
+        self.we_down = dense_init((E, Fe, D), dtype, device, generator)
+        if cfg.moe_shared_experts:
+            self.shared = MLP(D, Fe * cfg.moe_shared_experts, dtype, device,
+                              generator)
+
+
+def moe_capacity(cfg, T: int, capacity_factor: float = 1.25) -> int:
+    """Tokens each expert takes at most: max(1, int(cf * K * T / E))."""
+    return max(1, int(capacity_factor * cfg.moe_topk * T / cfg.moe_experts))
+
+
+def moe_route(p, cfg, xt, capacity_factor: float = 1.25) -> dict:
+    """The router's decisions for tokens ``xt`` [T, D]: the float32
+    softmax ``probs`` [T, E], the top-k ``gates`` (renormalized) and picks
+    ``idx`` [T, K]; then the dispatch of the T*K routed rows in stable
+    (expert, token) ``order``: ``keep`` (within the expert's capacity C)
+    and ``slot`` (expert * C + rank, or E * C, the dump row)."""
+    E, K = cfg.moe_experts, cfg.moe_topk
+    T = xt.shape[0]
+    probs = torch.softmax(xt.float() @ p.router, dim=-1)
+    gates, idx = torch.topk(probs, K, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    C = moe_capacity(cfg, T, capacity_factor)
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    # rank of each routed token within its expert
+    pos = torch.arange(T * K, device=xt.device) - torch.searchsorted(
+        sorted_e, sorted_e, side="left")
+    keep = pos < C
+    slot = torch.where(keep, sorted_e * C + pos, E * C)
+    return {"probs": probs, "gates": gates, "idx": idx, "capacity": C,
+            "order": order, "keep": keep, "slot": slot}
+
+
 def moe_block(p, cfg, x, capacity_factor: float = 1.25):
-    raise _not_ported("the MoE block", "A9")
+    """Sort-based top-k MoE dispatch with the fixed capacity
+    ``C = max(1, int(capacity_factor * K * T / E))``; returns (y, aux).
+
+    The reference's global path (``moe_route``): tokens go to their top-k
+    experts in (expert, token) order, each expert takes at most C of them
+    and the overflow goes to a dump row that is discarded; the grouped
+    expert products are batched matmuls.  Its expert-parallel path
+    (``moe_local_dispatch``) needs a mesh, and without one the reference
+    takes this path too (ROADMAP A11).
+
+    Nothing depends on values (no ``.item()``, masks or bincount), so a
+    step captures over meta tensors.  The combine is deterministic: each
+    token gathers its K routed rows in its own pick order and sums them
+    k = 0, 1, ..., K-1 (ROADMAP D36); the reference scatter-adds them in
+    (expert, token) order.  The aux loss is Switch's, E * sum(me * pe),
+    with me counted by ``scatter_add_`` in place of a one-hot."""
+    B, S, D = x.shape
+    E, K = cfg.moe_experts, cfg.moe_topk
+    T = B * S
+    xt = x.reshape(T, D)
+    dev = x.device
+    r = moe_route(p, cfg, xt, capacity_factor)
+    C, order, keep, slot = r["capacity"], r["order"], r["keep"], r["slot"]
+
+    src_tok = order // K
+    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
+    buf = buf.index_put((slot,), xt[src_tok])   # duplicates: dump row only
+    ex_in = buf[:-1].reshape(E, C, D)
+
+    h = F.silu(torch.bmm(ex_in, p.we_gate)) * torch.bmm(ex_in, p.we_up)
+    ex_out = torch.bmm(h, p.we_down)                      # [E, C, D]
+
+    flat_out = ex_out.reshape(E * C, D)
+    routed = torch.where(keep[:, None],
+                         flat_out[torch.clamp(slot, 0, E * C - 1)],
+                         torch.zeros((), dtype=x.dtype, device=dev))
+    g = r["gates"].reshape(-1)[order][:, None].to(x.dtype)
+    # back to (token, pick) order, then a fixed-order sum over the picks
+    picks = (routed * g)[torch.argsort(order)].reshape(T, K, D)
+    y = picks[:, 0]
+    for k in range(1, K):
+        y = y + picks[:, k]
+    y = y.reshape(B, S, D)
+
+    if hasattr(p, "shared"):
+        y = y + mlp_block(p.shared, x)
+    # load-balancing auxiliary loss (Switch-style)
+    me = torch.zeros(E, device=dev).scatter_add_(
+        0, r["idx"][:, 0], torch.ones(T, device=dev)) / T
+    pe = r["probs"].mean(0)
+    aux = E * torch.sum(me * pe)
+    return y, aux

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (TinyLlama-style).
+"""Decoder-only transformer LM: the dense, MoE and VLM families.
 
 The reference runs the layer stack under ``lax.scan`` over stacked
 parameters; here the layers are an ``nn.ModuleList`` walked in a loop, and
@@ -9,9 +9,13 @@ runs the forward kernel twice and each backward kernel once.  The loss is
 vocab-chunked cross-entropy over ``loss_chunk``-token chunks, so the
 ``tokens x vocab`` logits are never held at once.
 
-The MoE branch (``moe_block``, ``dense_layers``), the VLM stub
-(``vision_proj``), ``save_proj_remat`` and ``decode_inplace`` are not
-ported yet and raise (ROADMAP A9).
+MoE configs (``moe_experts``) have ``moe_first_dense`` dense layers in
+``dense_layers`` before the MoE layers in ``layers``; each MoE layer adds
+its load-balancing loss to the forward's ``aux``.  VLM configs
+(``vision_tokens``) project the stub patch embeddings through
+``vision_proj`` and prepend them to the token embeddings.
+``save_proj_remat`` and ``decode_inplace`` are not ported yet and raise
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -40,39 +44,67 @@ class DenseLayer(nn.Module):
         self.mlp = L.MLP(D, cfg.d_ff, dtype, device, generator)
 
 
+class MoELayer(nn.Module):
+    def __init__(self, cfg: ArchConfig, dtype, device, generator):
+        super().__init__()
+        D = cfg.d_model
+        self.ln1 = L.ones((D,), dtype, device)
+        self.ln2 = L.ones((D,), dtype, device)
+        self.attn = L.Attention(cfg, dtype, device, generator)
+        self.moe = L.MoE(cfg, dtype, device, generator)
+
+
+def n_dense_layers(cfg: ArchConfig) -> int:
+    return cfg.moe_first_dense if cfg.moe_experts else 0
+
+
 class TransformerLM(nn.Module):
-    """``embed`` [V, D], ``layers[i]`` (``ln1``, ``ln2``, ``attn``,
-    ``mlp``), ``ln_f`` and ``unembed`` [D, V], as the reference's
-    ``init_lm`` lays them out (its stacked ``layers/<name>`` leaves are
-    ``layers[i].<name>`` here)."""
+    """``embed`` [V, D], ``dense_layers[i]`` (MoE configs' leading dense
+    layers), ``layers[i]`` (``ln1``, ``ln2``, ``attn`` and ``mlp`` or
+    ``moe``), ``ln_f``, ``unembed`` [D, V] and ``vision_proj`` [D, D], as
+    the reference's ``init_lm`` lays them out (its stacked
+    ``layers/<name>`` leaves are ``layers[i].<name>`` here)."""
 
     def __init__(self, cfg: ArchConfig, device, generator):
         super().__init__()
-        if cfg.moe_experts:
-            raise _not_ported("the MoE transformer")
-        if cfg.vision_tokens:
-            raise _not_ported("the VLM transformer")
         dtype = getattr(torch, cfg.param_dtype)
         D, V = cfg.d_model, cfg.vocab
+        n_dense = n_dense_layers(cfg)
+        main = MoELayer if cfg.moe_experts else DenseLayer
         self.cfg = cfg
         self.embed = L.dense_init((V, D), dtype, device, generator,
                                   scale=0.02)
+        if n_dense:
+            self.dense_layers = nn.ModuleList(
+                DenseLayer(cfg, dtype, device, generator)
+                for _ in range(n_dense))
         self.layers = nn.ModuleList(
-            DenseLayer(cfg, dtype, device, generator)
-            for _ in range(cfg.n_layers))
+            main(cfg, dtype, device, generator)
+            for _ in range(cfg.n_layers - n_dense))
         self.ln_f = L.ones((D,), dtype, device)
         if not cfg.tie_embeddings:
             self.unembed = L.dense_init((D, V), dtype, device, generator,
                                         scale=0.02)
+        if cfg.vision_tokens:
+            self.vision_proj = L.dense_init((D, D), dtype, device,
+                                            generator)
 
-    def forward(self, tokens, kv_caches=None, cache_index=None):
-        """Returns (hidden [B, S, D], new_kv_caches, aux_loss)."""
+    def forward(self, tokens, extra_embeds=None, kv_caches=None,
+                cache_index=None):
+        """Returns (hidden [B, S, D], new_kv_caches, aux_loss); with
+        ``extra_embeds`` [B, Sv, D] the hidden states cover the Sv vision
+        positions first, then the tokens."""
         cfg = self.cfg
         if cfg.decode_inplace and kv_caches is not None and \
-                tokens.shape[1] == 1:
+                tokens.shape[1] == 1 and extra_embeds is None:
             raise _not_ported("the decode_inplace stacked-cache branch")
-        S = tokens.shape[1]
         x = F.embedding(tokens, self.embed)
+        if extra_embeds is not None:
+            dt = torch.promote_types(extra_embeds.dtype,
+                                     self.vision_proj.dtype)
+            ve = extra_embeds.to(dt) @ self.vision_proj.to(dt)
+            x = torch.cat([ve.to(x.dtype), x], dim=1)
+        S = x.shape[1]
         positions = torch.arange(S, device=tokens.device)
         if cache_index is not None:
             positions = positions + cache_index
@@ -81,24 +113,32 @@ class TransformerLM(nn.Module):
         remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
         if remat and cfg.save_proj_remat:
             raise _not_ported("the save_proj_remat checkpoint policy")
-        new_k, new_v = [], []
-        for i, layer in enumerate(self.layers):
-            if remat:
-                x = checkpoint(_layer_hidden, cfg, inv_freqs, layer, x,
-                               positions, use_reentrant=False)
-                continue
-            kv = None if kv_caches is None else (kv_caches["main"][0][i],
-                                                 kv_caches["main"][1][i])
-            x, kv = _layer_apply(cfg, inv_freqs, layer, x, positions, kv,
-                                 cache_index)
-            if kv is not None:
-                new_k.append(kv[0])
-                new_v.append(kv[1])
+        aux = 0.0
+        new_kv = {}
+        stacks = [("main", self.layers)]
+        if hasattr(self, "dense_layers"):
+            stacks.insert(0, ("dense", self.dense_layers))
+        for name, stack in stacks:
+            caches = None if kv_caches is None else kv_caches[name]
+            new_k, new_v = [], []
+            for i, layer in enumerate(stack):
+                if remat:
+                    x, aux_l = checkpoint(_layer_hidden, cfg, inv_freqs,
+                                          layer, x, positions,
+                                          use_reentrant=False)
+                else:
+                    kv = None if caches is None else (caches[0][i],
+                                                      caches[1][i])
+                    x, kv, aux_l = _layer_apply(cfg, inv_freqs, layer, x,
+                                                positions, kv, cache_index)
+                    if kv is not None:
+                        new_k.append(kv[0])
+                        new_v.append(kv[1])
+                aux = aux + aux_l
+            if caches is not None:
+                new_kv[name] = (torch.stack(new_k), torch.stack(new_v))
         x = L.apply_norm(cfg.norm, x, self.ln_f)
-        new_caches = None
-        if kv_caches is not None:
-            new_caches = {"main": (torch.stack(new_k), torch.stack(new_v))}
-        return x, new_caches, 0.0
+        return x, (new_kv if kv_caches is not None else None), aux
 
 
 def _layer_apply(cfg, inv_freqs, p, x, positions, kv=None, cache_index=None):
@@ -107,12 +147,17 @@ def _layer_apply(cfg, inv_freqs, p, x, positions, kv=None, cache_index=None):
         causal=True, kv_cache=kv, cache_index=cache_index,
         inv_freqs=inv_freqs)
     x = x + h
-    y = L.mlp_block(p.mlp, L.apply_norm(cfg.norm, x, p.ln2), cfg)
-    return x + y, new_kv
+    xn = L.apply_norm(cfg.norm, x, p.ln2)
+    if hasattr(p, "moe"):
+        y, aux = L.moe_block(p.moe, cfg, xn)
+    else:
+        y, aux = L.mlp_block(p.mlp, xn, cfg), 0.0
+    return x + y, new_kv, aux
 
 
 def _layer_hidden(cfg, inv_freqs, p, x, positions):
-    return _layer_apply(cfg, inv_freqs, p, x, positions)[0]
+    x, _, aux = _layer_apply(cfg, inv_freqs, p, x, positions)
+    return x, aux
 
 
 def unembed_matrix(model, cfg):
@@ -161,7 +206,10 @@ def chunked_ce_loss(model, cfg: ArchConfig, hidden, labels, mask=None):
 
 
 def loss_fn(model: TransformerLM, batch):
-    hidden, _, aux = model(batch["tokens"])
+    extra = batch.get("vision")
+    hidden, _, aux = model(batch["tokens"], extra_embeds=extra)
+    if extra is not None:
+        hidden = hidden[:, extra.shape[1]:]   # loss on text positions only
     loss = chunked_ce_loss(model, model.cfg, hidden, batch["labels"])
     return loss + 0.01 * aux
 
@@ -172,18 +220,29 @@ def loss_fn(model: TransformerLM, batch):
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
                   dtype=torch.bfloat16):
-    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.hd)
-    return {"main": (torch.zeros(shape, dtype=dtype, device=device),
-                     torch.zeros(shape, dtype=dtype, device=device))}
+    """``{"main": (k, v)}`` of [n_layers, batch, max_seq, KV, hd], and
+    ``"dense"`` for an MoE config's leading dense layers."""
+    n_dense = n_dense_layers(cfg)
+
+    def mk(n):
+        shape = (n, batch, max_seq, cfg.kv_heads, cfg.hd)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+    cache = {"main": mk(cfg.n_layers - n_dense)}
+    if n_dense:
+        cache["dense"] = mk(n_dense)
+    return cache
 
 
 @torch.no_grad()
-def prefill(model: TransformerLM, tokens):
-    """Full forward writing k/v into a fresh cache at index 0; returns
-    (last-position logits, kv_cache)."""
+def prefill(model: TransformerLM, tokens, extra_embeds=None):
+    """Full forward writing k/v into a fresh cache at index 0, sized to the
+    vision and text positions; returns (last-position logits, kv_cache)."""
     B, S = tokens.shape
-    cache = init_kv_cache(model.cfg, B, S, tokens.device)
-    hidden, new_cache, _ = model(tokens, kv_caches=cache, cache_index=0)
+    s_total = S + (extra_embeds.shape[1] if extra_embeds is not None else 0)
+    cache = init_kv_cache(model.cfg, B, s_total, tokens.device)
+    hidden, new_cache, _ = model(tokens, extra_embeds=extra_embeds,
+                                 kv_caches=cache, cache_index=0)
     return hidden[:, -1] @ unembed_matrix(model, model.cfg), new_cache
 
 

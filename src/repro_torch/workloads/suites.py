@@ -64,8 +64,7 @@ def tpu_step_workload(cfg, seq: int):
     """(loss_fn, abstract params, batch specs) for the graph-walking
     backend: the training loss of ``cfg`` at batch 1 and ``seq`` tokens as
     a function of its parameters, over shapes and dtypes only (the model
-    is built on the meta device).  The families not ported yet raise
-    ``NotImplementedError`` (ROADMAP A9)."""
+    is built on the meta device), for every family."""
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch.steps import abstract_params, make_loss_fn
     from repro_torch.models.api import batch_specs, build

@@ -47,6 +47,19 @@ seq 64).  It holds the initial parameters (``param:<path>``), the batches,
 the per-step ``loss``, ``grad_norm`` and ``lr``, and the parameters after
 the last step (``final:<path>``).  ``--only train`` writes this file alone.
 
+``tests/fixtures/torch/golden_<arch>_smoke.npz`` for ``deepseek_moe_16b``,
+``internvl2_1b`` and ``whisper_small``: the reference's serving loop on the
+smoke config (``param_dtype="float32"``; ``attn_impl="flash"``, the Pallas
+kernels in interpret mode, where the port's kernels take the head dim, and
+``"ref"`` for InternVL2's 14) over tokens, vision embeddings and mel frames
+from a numpy seed, and one training step (``make_optimizer(cfg,
+total_steps=1)``) on ``SyntheticLMDataset`` (seed 0, step 0).  It holds the
+parameters (``param:<path>``; Whisper's ``dec_pos`` cut to its first
+``DEC_POS_ROWS`` rows, the only ones a run reads), the serving batch
+(``serve:<key>``), the prefill logits, the greedy tokens, the training
+batch (``train:<key>``) and the step's ``loss``, ``grad_norm`` and ``lr``.
+``--only families`` writes these files alone (seconds).
+
 ``tests/fixtures/torch/golden_campaign.json``: the reference's campaign
 (``CampaignRunner``, thread scheduler, ``engine="numpy"``, the default
 retention bins and sweep axes, no cache) over ``suite:mlperf,suite:polybench``
@@ -98,6 +111,13 @@ OUT_CAMPAIGN = Path(__file__).parent / "fixtures" / "torch" / \
     "golden_campaign.json"
 CAMPAIGN = {"workloads": "suite:mlperf,suite:polybench",
             "backends": ["systolic", "gpu"]}
+# the families' smoke fixtures: attn_impl per arch (the port's kernels take
+# head dims 16-128; InternVL2's smoke config has 14), serving and training
+FAMILIES = {"deepseek_moe_16b": "flash", "internvl2_1b": "ref",
+            "whisper_small": "flash"}
+FAMILY_SERVE = {"batch": 2, "prompt_len": 24, "gen": 6, "token_seed": 0}
+FAMILY_TRAIN = {"batch": 2, "seq": 32, "data_seed": 0}
+DEC_POS_ROWS = 64
 # entry key -> (registry workload, param overrides)
 GPU_ENTRIES = {"tinyllama_1_1b@2": ("tinyllama_1_1b", {"n_layers": 2}),
                "tinyllama_1_1b@22": ("tinyllama_1_1b", {"n_layers": 22})}
@@ -168,6 +188,66 @@ def golden_train() -> dict:
         labels=np.stack([b["labels"] for b in batches]).astype(np.int64),
         **{k: np.array([m[k] for m in metrics], np.float32)
            for k in ("loss", "grad_norm", "lr")})
+    return fixture
+
+
+def family_path(arch: str) -> Path:
+    return Path(__file__).parent / "fixtures" / "torch" / \
+        f"golden_{arch}_smoke.npz"
+
+
+def golden_family(arch: str) -> dict:
+    from repro.configs.base import ShapeCell
+    from repro.data import SyntheticLMDataset
+    from repro.launch.steps import make_optimizer, make_train_step
+    from repro.models.api import build
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              attn_impl=FAMILIES[arch],
+                              param_dtype="float32")
+    api = build(cfg)
+    params, _ = api.init(jax.random.PRNGKey(0))
+    B, P, G = (FAMILY_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    rng = np.random.default_rng(FAMILY_SERVE["token_seed"])
+    serve = {"tokens": rng.integers(0, cfg.vocab, (B, P + G))}
+    if cfg.family == "vlm":
+        serve["vision"] = rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model), dtype=np.float32)
+    if cfg.family == "audio":
+        serve["frames"] = rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    jbatch = {k: jnp.asarray(v, jnp.int32) if k == "tokens"
+              else jnp.asarray(v) for k, v in serve.items()}
+    logits, cache = jax.jit(api.prefill)(params, jbatch)
+    prefill_logits = np.asarray(logits, np.float32)
+    decode = jax.jit(api.decode)
+    tok = jnp.argmax(logits, -1).astype(jnp.int32)
+    outs = [np.asarray(tok)]
+    for i in range(G - 1):
+        logits, cache = decode(params, cache, tok, jnp.int32(P + i))
+        tok = jnp.argmax(logits, -1).astype(jnp.int32)
+        outs.append(np.asarray(tok))
+
+    ds = SyntheticLMDataset(
+        cfg, ShapeCell("train", "train", FAMILY_TRAIN["seq"],
+                       FAMILY_TRAIN["batch"]), seed=FAMILY_TRAIN["data_seed"])
+    train = ds.get_batch(0)
+    opt = make_optimizer(cfg, total_steps=1)
+    _, _, m = jax.jit(make_train_step(api, opt))(params, opt.init(params),
+                                                 train)
+    flat = flatten(params)
+    if "dec_pos" in flat:
+        flat["dec_pos"] = flat["dec_pos"][:DEC_POS_ROWS]
+    fixture = {f"param:{k}": v for k, v in flat.items()}
+    fixture.update({f"serve:{k}": v.astype(np.int64) if k == "tokens"
+                    else v for k, v in serve.items()})
+    fixture.update({f"train:{k}": v.astype(np.int64) if v.dtype.kind == "i"
+                    else v for k, v in train.items()})
+    fixture.update(prompt_len=np.int64(P), gen=np.int64(G),
+                   attn_impl=np.str_(FAMILIES[arch]),
+                   prefill_logits=prefill_logits,
+                   greedy_tokens=np.stack(outs, 1).astype(np.int64),
+                   **{k: np.float32(m[k]) for k in ("loss", "grad_norm",
+                                                    "lr")})
     return fixture
 
 
@@ -305,7 +385,7 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 22])
     ap.add_argument("--only",
                     choices=["tinyllama", "zamba2", "train", "gpu",
-                             "campaign"])
+                             "campaign", "families"])
     args = ap.parse_args(argv)
     if args.only in (None, "campaign"):
         OUT_CAMPAIGN.write_text(json.dumps(golden_campaign(), indent=1)
@@ -321,7 +401,11 @@ def main(argv=None) -> None:
     if args.only in (None, "train"):
         np.savez_compressed(OUT_TRAIN, **golden_train())
         print(f"wrote {OUT_TRAIN}")
-    if args.only in ("zamba2", "train", "gpu", "campaign"):
+    if args.only in (None, "families"):
+        for arch in FAMILIES:
+            np.savez_compressed(family_path(arch), **golden_family(arch))
+            print(f"wrote {family_path(arch)}")
+    if args.only in ("zamba2", "train", "gpu", "campaign", "families"):
         return
     golden = json.loads(OUT.read_text()) if OUT.exists() else {}
     golden["run"] = RUN

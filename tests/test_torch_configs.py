@@ -5,8 +5,9 @@ port has all ten of the reference's, in its order, and each registers an
 ``archs`` workload whose systolic GEMM list and op-stream program equal the
 reference's.  Every registered spec, the ``archs`` ones with their
 ``tpu_graph`` lowering and ``tpu_smoke`` param included, hashes as the
-reference's.  Nothing here builds a model: the ``moe``, ``vlm`` and
-``audio`` families are not ported (``models/api.py`` raises for them).
+reference's.  Nothing here builds a model (the families are held against
+the reference in ``tests/test_torch_moe.py``, ``test_torch_vlm_audio.py``
+and the other model tests).
 """
 
 import dataclasses

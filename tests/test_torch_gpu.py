@@ -312,8 +312,9 @@ def test_serving_path_reproduces_the_golden_fixture_on_the_card(cuda):
     load_reference_params(api.model, tree_from_flat(golden))
     before = fa_k.flash_attention_bhsd.launches, \
         ssd_k.ssd_scan_chunked.launches
-    out = generate(api, torch.from_numpy(golden["tokens"]).to(cuda),
-                   int(golden["prompt_len"]), int(golden["gen"]))
+    tokens = torch.from_numpy(golden["tokens"]).to(cuda)
+    out = generate(api, {"tokens": tokens}, int(golden["prompt_len"]),
+                   int(golden["gen"]))
     assert fa_k.flash_attention_bhsd.launches == before[0] + 2
     assert ssd_k.ssd_scan_chunked.launches == before[1] + 4
     np.testing.assert_allclose(out.prefill_logits.cpu().numpy(),

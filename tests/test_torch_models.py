@@ -233,7 +233,9 @@ def test_unported_branches_say_so():
     with pytest.raises(NotImplementedError, match="A9"):
         layers.attention_block(mod, tcfg, x[:, :1], positions=None,
                                stacked_cache=(x, x))
-    moe = dataclasses.replace(get_config("tinyllama_1_1b", smoke=True),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="A9"):
-        build(moe, device="cpu")
+    # the MoE family is ported (tests/test_torch_moe.py): it builds
+    moe = dataclasses.replace(get_config("deepseek_moe_16b", smoke=True),
+                              param_dtype="float32")
+    api = build(moe, device="cpu")
+    assert len(api.model.dense_layers) == moe.moe_first_dense
+    assert all(hasattr(layer, "moe") for layer in api.model.layers)

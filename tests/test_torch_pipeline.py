@@ -204,9 +204,11 @@ def test_what_is_not_ported_says_so():
     with pytest.raises(ValueError, match="numpy"):
         sess.compose(engine="jax")
     # the graph-walking backend is ported (tests/test_torch_tpu_graph.py),
-    # and its lowering of a family A9 has not ported says so
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_get_workload("deepseek_moe_16b").build("tpu")
+    # and since the MoE family was ported its lowering builds too
+    (fn, params, batch), cfg = port_get_workload("deepseek_moe_16b").build(
+        "tpu")
+    assert callable(fn) and any(".moe.router" in n for n in params)
+    assert sorted(batch) == ["labels", "tokens"] and cfg == {"sample": 4}
     (fn, params, batch), cfg = port_get_workload("tinyllama_1_1b").build(
         "tpu")
     assert callable(fn) and params and sorted(batch) == ["labels",

@@ -61,7 +61,8 @@ def test_generate_gives_the_references_greedy_tokens(arch, fam):
     load_reference_params(api.model,
                           jax.tree.map(lambda a: np.asarray(a, np.float32),
                                        params))
-    out = serve.generate(api, torch.from_numpy(tokens), prompt_len, gen)
+    out = serve.generate(api, {"tokens": torch.from_numpy(tokens)},
+                         prompt_len, gen)
     assert out.tokens.shape == (3, gen) and out.tokens.dtype == torch.int64
     np.testing.assert_array_equal(out.tokens.numpy(), want)
     np.testing.assert_allclose(out.prefill_logits.numpy(), want_logits,
@@ -105,8 +106,9 @@ def test_golden_fixture_is_what_the_writer_says(golden):
 
 def test_port_reproduces_the_golden_fixture_on_the_cpu(golden):
     api = _golden_api(golden, "cpu")
-    out = serve.generate(api, torch.from_numpy(golden["tokens"]),
-                         int(golden["prompt_len"]), int(golden["gen"]))
+    tokens = torch.from_numpy(golden["tokens"])
+    out = serve.generate(api, {"tokens": tokens}, int(golden["prompt_len"]),
+                         int(golden["gen"]))
     np.testing.assert_allclose(out.prefill_logits.numpy(),
                                golden["prefill_logits"], atol=1e-4,
                                rtol=1e-4)
