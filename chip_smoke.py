@@ -71,7 +71,20 @@ version on the card, and drives the port's two paths:
   (deepseek-moe-16b at full width and 4 layers), with the flash-attention
   kernels launched as often as the config says and no plain-version call,
   and one float32 step of each at reduced depth, kernel path against plain
-  path (``families``).
+  path (``families``);
+* the tuned configs (``tuned``): ``get_tuned_config`` on TinyLlama-1.1B as
+  published (flashref attention, save_proj_remat, tp_bf16_reduce), served
+  at batch 4 x (1008 + 16) through qchunk with decode_inplace off and on
+  (equal tokens, bit-equal logits, the in-place steps return the cache
+  they were given; decode tokens/s, the decode loop's peak memory and one
+  decode step's device split from a ``torch.profiler`` trace in a fresh
+  interpreter), trained five steps at batch 4 x 2048 with save_proj_remat
+  and with plain remat (step s, tokens/s, the peak difference beside the
+  two projections' predicted bytes), float32 steps at two layers
+  (save_proj_remat = plain remat within 1e-6; the tuned step against the
+  untuned ``attn_impl="ref"`` one), and the ten arch configs' tuned smoke
+  configs against the JAX reference's ``golden_tuned_<arch>.npz``; no
+  kernel launches on this path and no plain version runs.
 
 It times each kernel at the shapes its path gives it: the lifetime scan
 right after the profiling path (also on one segment that crosses every
@@ -91,7 +104,7 @@ and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
 and address structures), ``cli``, ``check``, ``full``, ``sweep`` of the
 systolic session, ``gpu``, ``sweep`` of the GPU-cache session,
 ``campaign``, ``tpu``, ``golden``, ``serve``, ``train_golden``, ``train``,
-``family_golden``, ``families``;
+``family_golden``, ``families``, ``tuned``;
 ``ssd_no_backward`` after K5's ``kernel_check``), then the
 ``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
@@ -296,6 +309,34 @@ FAMILY_ATTENTION = {"deepseek_moe_16b": (4, 16, 16, 2048, 2048, 128, True),
 # prefill logits abs, one train step's loss and grad norm relative
 FAMILY_GOLDEN_TOL = {"logits": 1e-4, "loss": 1e-5, "grad_norm": 1e-5,
                      "lr": 1e-6}
+# get_tuned_config (flashref attention, save_proj_remat, tp_bf16_reduce) on
+# TinyLlama-1.1B as published (bf16, seed 0): served at SERVE's batch and
+# lengths with decode_inplace off and on (prefill through qchunk), trained
+# at TRAIN's shape with save_proj_remat and with plain remat; then float32
+# steps at full width and f32_layers layers.  No kernel of the table lies
+# on this path: every wrapper's count stays 0 and no plain version runs.
+TUNED = {"arch": "tinyllama_1_1b", "batch": 4, "prompt_len": 1008,
+         "gen": 16, "seq": 2048, "steps": 5, "param_seed": 0,
+         "token_seed": 1, "data_seed": 0, "profile_steps": 3,
+         "f32_layers": 2, "f32_batch": 1}
+# save_proj_remat against plain remat, float32: the loss and each gradient
+# leaf relative (the same arithmetic; only what is kept differs)
+TUNED_PROJ_REL_TOL = 1e-6
+# save_proj_remat's forward keeps the two projections of every layer more
+# than plain remat's: their bytes, within this share
+TUNED_KEPT_REL_TOL = 0.01
+# the tuned float32 step against the untuned attn_impl="ref" step:
+# without tp_bf16_reduce within TRAIN_REL_TOL; with it (projection outputs
+# rounded to bf16) the loss within TRAIN_REL_TOL and each gradient leaf
+# within bf16's 2e-2
+TUNED_BF16_REDUCE_REL_TOL = {"loss": TRAIN_REL_TOL["loss"], "grad": 2e-2}
+# the ten tuned smoke configs (float32) against golden_tuned_<arch>.npz
+# (tests/make_torch_golden.py --only tuned): without tp_bf16_reduce the
+# families' float32 gates; as published the logits and grad norm, which
+# pass through bf16-rounded projection outputs, as bf16 values
+TUNED_GOLDEN_TOL = {"no_bf16_reduce": FAMILY_GOLDEN_TOL,
+                    "tuned": {**FAMILY_GOLDEN_TOL, "logits": 2e-2,
+                              "grad_norm": 2e-2}}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1387,17 +1428,57 @@ def family_serving_counts(cfg) -> int:
     return cfg.enc_layers + cfg.n_layers if cfg.family == "audio" else 0
 
 
-def phase_family_golden(torch, np, device) -> None:
-    """The MoE, VLM and audio smoke configs on the card, in float32, against
-    the JAX reference's golden fixtures: ``generate`` (prefill logits,
-    greedy tokens) and one training step (loss, grad norm, lr), with the
-    kernels where the fixture's ``attn_impl`` is "flash" (InternVL2's smoke
-    head dim, 14, is not one the kernels take: "ref")."""
-    from repro_torch.configs.base import get_config
+def golden_run(torch, np, device, cfg, fx, want, tol, what) -> dict:
+    """``cfg`` on the card with a golden fixture's parameters and batches
+    (``fx``): ``generate`` over its serving batch and one training step on
+    its training batch, held to ``want``'s prefill logits (abs), greedy
+    tokens (equal) and loss, grad norm and lr (relative) within ``tol``.
+    Returns the errors and each half's kernel launches."""
     from repro_torch.convert import load_reference_params, tree_from_flat
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_optimizer, make_train_step
     from repro_torch.models.api import build
+
+    def part(prefix):
+        return {k[len(prefix):]: torch.from_numpy(v).to(device)
+                for k, v in fx.items() if k.startswith(prefix)}
+    api = build(cfg, device=device)
+    load_reference_params(api.model, tree_from_flat(fx, "param:", api.model))
+    reset_training_counts()
+    out = generate(api, part("serve:"), int(fx["prompt_len"]),
+                   int(fx["gen"]))
+    serve_counts = training_counts()
+    logits = out.prefill_logits.cpu().numpy()
+    err = float(np.abs(logits - want["prefill_logits"]).max())
+    if not np.isfinite(logits).all() or err > tol["logits"]:
+        raise AssertionError(f"{what}: prefill logits differ from the JAX "
+                             f"reference by {err}")
+    tokens = out.tokens.cpu().numpy()
+    if not np.array_equal(tokens, want["greedy_tokens"]):
+        raise AssertionError(f"{what}: greedy tokens {tokens.tolist()} != "
+                             f"{want['greedy_tokens'].tolist()}")
+    opt = make_optimizer(cfg, total_steps=1)
+    params = dict(api.model.named_parameters())
+    reset_training_counts()
+    _, _, m = make_train_step(api, opt)(params, opt.init(params),
+                                        part("train:"))
+    step_counts = training_counts()
+    rel = {}
+    for k in ("loss", "grad_norm", "lr"):
+        rel[k] = abs(float(m[k]) - float(want[k])) / abs(float(want[k]))
+        if not math.isfinite(float(m[k])) or rel[k] > tol[k]:
+            raise AssertionError(f"{what}: {k} {float(m[k])} != "
+                                 f"{float(want[k])}")
+    return {"max_abs_logit_err": err, "step_rel_err": rel,
+            "serve_launches": serve_counts, "step_launches": step_counts}
+
+
+def phase_family_golden(torch, np, device) -> None:
+    """The MoE, VLM and audio smoke configs on the card, in float32, against
+    the JAX reference's golden fixtures (``golden_run``), with the kernels
+    where the fixture's ``attn_impl`` is "flash" (InternVL2's smoke head
+    dim, 14, is not one the kernels take: "ref")."""
+    from repro_torch.configs.base import get_config
 
     runs = {}
     for arch in FAMILY_ARCHS:
@@ -1406,58 +1487,20 @@ def phase_family_golden(torch, np, device) -> None:
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   attn_impl=str(fx["attn_impl"]),
                                   param_dtype="float32")
-        api = build(cfg, device=device)
-        load_reference_params(api.model,
-                              tree_from_flat(fx, "param:", api.model))
-
-        def part(prefix):
-            return {k[len(prefix):]: torch.from_numpy(v).to(device)
-                    for k, v in fx.items() if k.startswith(prefix)}
         flash = cfg.attn_impl == "flash"
-        reset_training_counts()
         with no_plain_calls(f"family_golden {arch}"):
-            out = generate(api, part("serve:"), int(fx["prompt_len"]),
-                           int(fx["gen"]))
-        serve_counts = training_counts()
+            run = golden_run(torch, np, device, cfg, fx, fx,
+                             FAMILY_GOLDEN_TOL, f"family_golden {arch}")
         want = (family_serving_counts(cfg) if flash else 0, 0, 0)
-        if serve_counts != want:
+        if run["serve_launches"] != want:
             raise AssertionError(f"family_golden {arch}: serving launches "
-                                 f"{serve_counts}, expected {want}")
-        logits = out.prefill_logits.cpu().numpy()
-        err = float(np.abs(logits - fx["prefill_logits"]).max())
-        tol = FAMILY_GOLDEN_TOL["logits"]
-        if not np.isfinite(logits).all() or err > tol:
-            raise AssertionError(f"family_golden {arch}: prefill logits "
-                                 f"differ from the JAX reference by {err}")
-        tokens = out.tokens.cpu().numpy()
-        if not np.array_equal(tokens, fx["greedy_tokens"]):
-            raise AssertionError(f"family_golden {arch}: greedy tokens "
-                                 f"{tokens.tolist()} != "
-                                 f"{fx['greedy_tokens'].tolist()}")
-        opt = make_optimizer(cfg, total_steps=1)
-        params = dict(api.model.named_parameters())
-        reset_training_counts()
-        with no_plain_calls(f"family_golden {arch} step"):
-            _, _, m = make_train_step(api, opt)(params, opt.init(params),
-                                                part("train:"))
-        step_counts = training_counts()
+                                 f"{run['serve_launches']}, expected {want}")
         want = expected_train_counts(cfg) if flash else (0, 0, 0)
-        if step_counts != tuple(want):
+        if run["step_launches"] != tuple(want):
             raise AssertionError(f"family_golden {arch}: step launches "
-                                 f"{step_counts}, expected {want}")
-        rel = {}
-        for k in ("loss", "grad_norm", "lr"):
-            rel[k] = abs(float(m[k]) - float(fx[k])) / abs(float(fx[k]))
-            if not math.isfinite(float(m[k])) or \
-                    rel[k] > FAMILY_GOLDEN_TOL[k]:
-                raise AssertionError(f"family_golden {arch}: {k} "
-                                     f"{float(m[k])} != {float(fx[k])}")
-        runs[arch] = {"attn_impl": cfg.attn_impl,
-                      "max_abs_logit_err": err, "tokens_equal": True,
-                      "step_rel_err": rel,
-                      "serve_launches": serve_counts,
-                      "step_launches": step_counts}
-        del api, params, out
+                                 f"{run['step_launches']}, expected {want}")
+        runs[arch] = {"attn_impl": cfg.attn_impl, "tokens_equal": True,
+                      **run}
     emit("family_golden", config="smoke, float32", tolerance=FAMILY_GOLDEN_TOL,
          runs=runs)
 
@@ -1663,6 +1706,354 @@ def time_family_kernels(torch, device, rows, families) -> None:
     by_name["flash_attention_bwd_dq"]["family_library_call"] = (
         "backward of F.scaled_dot_product_attention(is_causal=<the shape's>, "
         "enable_gqa=True): one number for K3 + K4 together")
+
+
+def reset_kernel_counts():
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    reset_training_counts()
+    ssd_k.ssd_scan_chunked.launches = 0
+
+
+def kernel_counts() -> dict:
+    """Launches of every serving and training kernel wrapper."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    fwd, dq, dkv = training_counts()
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": dq,
+            "flash_attention_bwd_dkv": dkv,
+            "ssd_scan": ssd_k.ssd_scan_chunked.launches}
+
+
+def tuned_model(torch, device, cfg):
+    from repro_torch.models.api import build
+    return build(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(TUNED["param_seed"]))
+
+
+def tuned_decode_loop(torch, api, batch) -> dict:
+    """Prefill, then ``gen - 1`` greedy decode steps: each step's logits,
+    the last cache, the loop's seconds, its peak memory above the memory
+    at its start, and whether every step returned the tensors it was
+    given (the in-place cache)."""
+    P, G = TUNED["prompt_len"], TUNED["gen"]
+    logits, cache = api.prefill(batch)
+    tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps, returned_given = [], True
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(G - 1):
+            given = cache
+            logits, cache = api.decode(cache, tok, P + i)
+            returned_given &= all(
+                a.data_ptr() == b.data_ptr()
+                for name in given for a, b in zip(given[name], cache[name]))
+            steps.append(logits)
+            tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    return {"logits": steps, "cache": cache,
+            "loop_s": time.perf_counter() - t0,
+            "peak_above_start": torch.cuda.max_memory_allocated() - base,
+            "returned_given_cache": bool(returned_given)}
+
+
+def decode_step_split(torch, device="cuda") -> dict:
+    """Device time of one decode step of TUNED's served model, by CUDA
+    op, decode_inplace off and on: a ``torch.profiler`` trace of
+    ``profile_steps`` steps after two warm-up steps, per step.  Run by a
+    fresh interpreter (``PROFILE_DECODE``; see ``profile_fresh``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeCell, get_tuned_config
+    device = torch.device(device)
+    cfg = get_tuned_config(TUNED["arch"])
+    api = tuned_model(torch, device, cfg)
+    P, n = TUNED["prompt_len"], TUNED["profile_steps"]
+    batch = api.make_batch(
+        torch.Generator(device=device).manual_seed(TUNED["token_seed"]),
+        ShapeCell("serve", "prefill", P + TUNED["gen"], TUNED["batch"]))
+    out = {}
+    for inplace in (False, True):
+        api.model.cfg = dataclasses.replace(cfg, decode_inplace=inplace)
+        with torch.no_grad():
+            logits, cache = api.prefill(batch)
+            tok = torch.argmax(logits, dim=-1)
+            for i in range(2):
+                logits, cache = api.decode(cache, tok, P + i)
+            torch.cuda.synchronize(device)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(2, 2 + n):
+                    logits, cache = api.decode(cache, tok, P + i)
+                torch.cuda.synchronize(device)
+                wall = time.perf_counter() - t0
+        ops = {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            k, us = ops.get(ev.name, (0, 0.0))
+            ops[ev.name] = (k + 1, us + ev.time_range.elapsed_us())
+        # None where the trace holds no device activity (not measured)
+        device_us = sum(us for _, us in ops.values()) / n if ops else None
+        wall_us = wall * 1e6 / n
+        top = sorted(ops.items(), key=lambda kv: -kv[1][1])
+        out["inplace" if inplace else "copy"] = {
+            "wall_us_per_step": wall_us, "device_us_per_step": device_us,
+            "device_idle_share": None if device_us is None
+            else 1.0 - device_us / wall_us,
+            "device_ops_per_step": sum(k for k, _ in ops.values()) / n,
+            "top_ops": [{"name": name[:96], "launches_per_step": k / n,
+                         "device_us_per_step": us / n}
+                        for name, (k, us) in top[:12]]}
+        del logits, cache
+    return out
+
+
+# run by a fresh interpreter: the decode step split of the tuned phase
+PROFILE_DECODE = """
+import json
+import torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+print(json.dumps(cs.decode_step_split(torch)))
+"""
+
+
+def tuned_serve(torch, device) -> dict:
+    """TinyLlama-1.1B's tuned config served, decode_inplace off and on:
+    ``generate`` (prefill s, decode tokens/s, tokens), then the decode loop
+    again recording each step's logits, its peak memory and the cache it
+    returns.  Gates: equal tokens, bit-equal logits at every step and the
+    same last cache both ways; the in-place steps return the cache they
+    were given, the copying steps new tensors."""
+    from repro_torch.configs.base import ShapeCell, get_tuned_config
+    from repro_torch.launch.serve import generate
+
+    cfg = get_tuned_config(TUNED["arch"])
+    P, G, B = TUNED["prompt_len"], TUNED["gen"], TUNED["batch"]
+    t0 = time.perf_counter()
+    api = tuned_model(torch, device, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = api.make_batch(
+        torch.Generator(device=device).manual_seed(TUNED["token_seed"]),
+        ShapeCell("serve", "prefill", P + G, B))
+    generate(api, batch, P, 2)                            # warm-up
+    runs, loops, outs = {}, {}, {}
+    for inplace in (False, True):
+        name = "inplace" if inplace else "copy"
+        api.model.cfg = dataclasses.replace(cfg, decode_inplace=inplace)
+        outs[name] = generate(api, batch, P, G)
+        loops[name] = tuned_decode_loop(torch, api, batch)
+        runs[name] = {
+            "prefill_s": outs[name].prefill_s,
+            "decode_s": outs[name].decode_s,
+            "decode_tokens_per_s": B * (G - 1) / outs[name].decode_s,
+            "decode_loop_s": loops[name]["loop_s"],
+            "decode_loop_peak_above_start": loops[name]["peak_above_start"],
+            "returned_given_cache": loops[name]["returned_given_cache"]}
+    api.model.cfg = cfg
+    logits = outs["copy"].prefill_logits
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not bool(logits.float().isfinite().all()):
+        raise AssertionError("tuned serve: prefill logits are not finite "
+                             "[batch, vocab]")
+    if not torch.equal(outs["copy"].tokens, outs["inplace"].tokens):
+        raise AssertionError("tuned serve: decode_inplace changes the "
+                             "greedy tokens")
+    copy, inpl = loops["copy"], loops["inplace"]
+    if not all(torch.equal(a, b) for a, b in zip(copy["logits"],
+                                                 inpl["logits"])):
+        raise AssertionError("tuned serve: decode_inplace changes the "
+                             "decode logits")
+    if not all(torch.equal(a, b) for name in copy["cache"]
+               for a, b in zip(copy["cache"][name], inpl["cache"][name])):
+        raise AssertionError("tuned serve: decode_inplace ends with another "
+                             "cache")
+    if not inpl["returned_given_cache"] or copy["returned_given_cache"]:
+        raise AssertionError(f"tuned serve: returned caches {runs}")
+    del api, batch, outs, loops, copy, inpl
+    torch.cuda.empty_cache()
+    return {"n_layers": cfg.n_layers, "attn_impl": cfg.attn_impl,
+            "batch": B, "prompt_len": P, "gen": G, "init_s": init_s,
+            "logits_bit_equal": True, "tokens_equal": True, "runs": runs}
+
+
+def tuned_train_run(torch, device, cfg, batches) -> dict:
+    """TUNED's steps of ``cfg`` from freshly drawn weights: step seconds,
+    losses and the peak memory above the model and optimizer state."""
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    api = tuned_model(torch, device, cfg)
+    opt = make_optimizer(cfg, total_steps=TUNED["steps"])
+    step_fn = make_train_step(api, opt)
+    params = dict(api.model.named_parameters())
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    steps = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        steps.append({"step_s": time.perf_counter() - ts,
+                      "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"])})
+    peak = torch.cuda.max_memory_allocated()
+    # what the forward keeps for the backward: memory held by the graph of
+    # one loss, measured between the forward and its release
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss = api.loss(batches[0])
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    del loss, api, opt, step_fn, params, state
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+               for s in steps):
+        raise AssertionError(f"tuned train: non-finite {steps}")
+    steady = statistics.median(s["step_s"] for s in steps[1:])
+    return {"save_proj_remat": cfg.save_proj_remat, "steps": steps,
+            "first_step_s": steps[0]["step_s"],
+            "median_step_s_2_to_5": steady,
+            "tokens_per_s": TUNED["batch"] * TUNED["seq"] / steady,
+            "max_memory_allocated": peak, "peak_above_state": peak - base,
+            "kept_by_forward": kept}
+
+
+def tuned_train(torch, device) -> dict:
+    """TinyLlama-1.1B's tuned config trained TUNED["steps"] steps at
+    batch x seq with save_proj_remat and again with plain remat (same
+    weights and batches); then the float32 gates at f32_layers layers:
+    save_proj_remat against plain remat (TUNED_PROJ_REL_TOL), the tuned
+    step against the untuned attn_impl="ref" step without tp_bf16_reduce
+    (TRAIN_REL_TOL) and with it (TUNED_BF16_REDUCE_REL_TOL)."""
+    from repro_torch.configs.base import (ShapeCell, get_config,
+                                          get_tuned_config)
+    from repro_torch.data import SyntheticLMDataset, to_device
+
+    cfg = get_tuned_config(TUNED["arch"])
+    ds = SyntheticLMDataset(cfg, ShapeCell("train", "train", TUNED["seq"],
+                                           TUNED["batch"]),
+                            seed=TUNED["data_seed"])
+    batches = [to_device(ds.get_batch(i), device)
+               for i in range(TUNED["steps"])]
+    proj = tuned_train_run(torch, device, cfg, batches)
+    plain = tuned_train_run(torch, device, dataclasses.replace(
+        cfg, save_proj_remat=False), batches)
+    del batches
+    # two projections [batch, seq, d_model] kept per layer, in bf16
+    predicted = cfg.n_layers * 2 * TUNED["batch"] * TUNED["seq"] * \
+        cfg.d_model * 2
+    extra = proj["kept_by_forward"] - plain["kept_by_forward"]
+    if abs(extra - predicted) > TUNED_KEPT_REL_TOL * predicted:
+        raise AssertionError(f"tuned train: save_proj_remat's forward keeps "
+                             f"{extra} B more than plain remat's, expected "
+                             f"{predicted}")
+
+    cut = {"n_layers": TUNED["f32_layers"], "param_dtype": "float32"}
+    cfg32 = dataclasses.replace(cfg, **cut)
+    ds = SyntheticLMDataset(cfg32, ShapeCell("f32", "train", TUNED["seq"],
+                                             TUNED["f32_batch"]),
+                            seed=TUNED["data_seed"])
+    batch = to_device(ds.get_batch(0), device)
+    api = tuned_model(torch, device, cfg32)
+    tuned = loss_and_grads(torch, api, batch)
+    api.model.cfg = dataclasses.replace(cfg32, save_proj_remat=False)
+    vs_plain_remat = grad_distance(torch, tuned, loss_and_grads(
+        torch, api, batch))
+    api.model.cfg = dataclasses.replace(cfg32, tp_bf16_reduce=False)
+    no_reduce = loss_and_grads(torch, api, batch)
+    api.model.cfg = dataclasses.replace(get_config(TUNED["arch"]), **cut,
+                                        attn_impl="ref")
+    untuned = loss_and_grads(torch, api, batch)
+    vs_ref = grad_distance(torch, no_reduce, untuned)
+    vs_ref_bf16_reduce = grad_distance(torch, tuned, untuned)
+    del api, batch, tuned, no_reduce, untuned
+    torch.cuda.empty_cache()
+    for what, d, tol in (
+            ("save_proj_remat vs plain remat", vs_plain_remat,
+             {"loss": TUNED_PROJ_REL_TOL, "grad": TUNED_PROJ_REL_TOL}),
+            ("tuned without tp_bf16_reduce vs untuned ref", vs_ref,
+             TRAIN_REL_TOL),
+            ("tuned vs untuned ref", vs_ref_bf16_reduce,
+             TUNED_BF16_REDUCE_REL_TOL)):
+        if d["loss_rel_err"] > tol["loss"] or \
+                d["grad_max_rel_2norm_err"] > tol["grad"]:
+            raise AssertionError(f"tuned train (float32): {what}: {d}, "
+                                 f"tolerance {tol}")
+    return {"n_layers": cfg.n_layers, "batch": TUNED["batch"],
+            "seq": TUNED["seq"], "save_proj_remat": proj,
+            "plain_remat": plain,
+            "peak_difference": proj["max_memory_allocated"]
+            - plain["max_memory_allocated"],
+            "peak_difference_predicted": predicted,
+            "kept_by_forward_difference": extra,
+            "bf16_losses_equal": [s["loss"] for s in proj["steps"]]
+            == [s["loss"] for s in plain["steps"]],
+            "float32": {**cut, "batch": TUNED["f32_batch"],
+                        "save_proj_vs_plain_remat": vs_plain_remat,
+                        "no_bf16_reduce_vs_untuned_ref": vs_ref,
+                        "tuned_vs_untuned_ref": vs_ref_bf16_reduce}}
+
+
+def tuned_golden(torch, np, device) -> dict:
+    """The ten arch configs' tuned smoke configs (float32) on the card
+    against the JAX reference's golden fixtures (``golden_run``), as
+    published and without tp_bf16_reduce (``TUNED_GOLDEN_TOL``)."""
+    from repro_torch.configs.base import ARCH_IDS, get_tuned_config
+
+    runs = {}
+    for arch in ARCH_IDS:
+        fx = dict(np.load(ROOT / "tests" / "fixtures" / "torch" /
+                          f"golden_tuned_{arch}.npz"))
+        tuned = dataclasses.replace(get_tuned_config(arch, smoke=True),
+                                    param_dtype="float32")
+        variants = {"tuned": (tuned, fx)}
+        if tuned.tp_bf16_reduce:
+            variants["no_bf16_reduce"] = (
+                dataclasses.replace(tuned, tp_bf16_reduce=False),
+                {k.split(":", 1)[1]: v for k, v in fx.items()
+                 if k.startswith("no_bf16_reduce:")})
+        for variant, (cfg, want) in variants.items():
+            what = f"tuned_golden {arch} {variant}"
+            run = golden_run(torch, np, device, cfg, fx, want,
+                             TUNED_GOLDEN_TOL[variant], what)
+            if any(run["serve_launches"] + run["step_launches"]):
+                raise AssertionError(f"{what}: kernel launches {run}")
+            runs[f"{arch} {variant}"] = {
+                k: run[k] for k in ("max_abs_logit_err", "step_rel_err")}
+    return runs
+
+
+def phase_tuned(torch, np, device, smi) -> None:
+    """get_tuned_config on the card: TinyLlama-1.1B served and trained as
+    published (``tuned_serve``, ``tuned_train``), the decode step's device
+    split from a fresh interpreter, and the ten smoke configs against the
+    JAX reference (``tuned_golden``), with no kernel launch and no
+    plain-version call anywhere in it."""
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    with no_plain_calls("tuned"):
+        serve = tuned_serve(torch, device)
+        train = tuned_train(torch, device)
+        counts = kernel_counts()
+        # each golden run resets and checks the attention kernels' counts
+        golden = tuned_golden(torch, np, device)
+    counts["ssd_scan"] = kernel_counts()["ssd_scan"]
+    if any(counts.values()):
+        raise AssertionError(f"tuned: kernel launches {counts}; the tuned "
+                             f"path runs none")
+    split = profile_fresh(torch, PROFILE_DECODE, ())
+    emit("tuned", nvidia_smi=smi, arch=TUNED["arch"],
+         config="get_tuned_config",
+         param_dtype="bfloat16", param_seed=TUNED["param_seed"],
+         serve=serve, decode_step_split=split, train=train,
+         golden_tuned=golden, golden_tolerance=TUNED_GOLDEN_TOL,
+         kernel_launches=counts, phase_s=time.perf_counter() - t0)
 
 
 def kernel_label(mangled: str) -> str:
@@ -2051,6 +2442,7 @@ def profile_fresh(torch, script, tensors, *args) -> dict:
     ``torch.profiler`` (CUPTI) ended this process with a segmentation fault
     when started after the serving and training phases."""
     path = ROOT / "build" / "chip_smoke_profile_inputs.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(tuple(x.cpu() for x in tensors), path)
     try:
         proc = subprocess.run(
@@ -3730,6 +4122,7 @@ def main() -> int:
     train = phase_train(torch, device)
     phase_family_golden(torch, np, device)
     families = phase_families(torch, device)
+    phase_tuned(torch, np, device, smi)
     rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
     rows += time_training_kernels(torch, device, train, bwd_check, rows[1])
     time_family_kernels(torch, device, rows, families)

@@ -9,8 +9,10 @@ mirrors the reference's distributions (dense: normal / sqrt(fan_in); norms
 
 Products that the reference asks in fp32 (``preferred_element_type``) are
 taken on float32 copies of their inputs.  There is no mesh in this package
-yet, so the reference's sharding constraints and checkpoint names, which
-are no-ops without one, are left out.
+yet, so the reference's sharding constraints, no-ops without one, are left
+out.  Its checkpoint name ``proj_out`` (the products by ``wo`` and
+``w_down``) has no torch counterpart: ``transformer.py``'s
+``save_proj_remat`` policy finds those products by their weights.
 """
 
 from __future__ import annotations
@@ -179,19 +181,169 @@ def reference_attention(q, k, v, *, causal, q_offset=0):
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+def _acc_dtype(t):
+    """The dtype the reference's float32 products take: float32, or
+    float64 for float64 inputs (``torch.autograd.gradcheck``)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _q_chunks(q, KV, q_block):
+    """q [B, Sq, H, hd] padded to whole chunks of ``q_block`` rows and
+    split: [B, nq, q_block, KV, G, hd]."""
+    B, Sq, H, hd = q.shape
+    nq = math.ceil(Sq / q_block)
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
+    return qp.reshape(B, nq, q_block, KV, H // KV, hd)
+
+
+def _chunk_scores(qc, kf, causal, q_pos):
+    """Scores [B, KV, G, qb, Skv] of one q chunk qc [B, qb, KV, G, hd]
+    against kf [B, Skv, KV, hd]; with ``causal`` the keys after each
+    query's absolute position ``q_pos`` [qb] are masked."""
+    s = torch.einsum("bqkgh,bpkh->bkgqp", qc, kf)
+    if causal:
+        k_pos = torch.arange(kf.shape[1], device=kf.device)
+        s = s.masked_fill(~(q_pos[:, None] >= k_pos[None, :]), NEG_INF)
+    return s
+
+
+def _chunk_out(o, dtype):
+    """[B, KV, G, qb, hd] -> [B, qb, H, hd] in ``dtype``."""
+    B, KV, G, qb, hd = o.shape
+    return o.permute(0, 3, 1, 2, 4).reshape(B, qb, KV * G, hd).to(dtype)
 
 
 def qchunk_attention(q, k, v, *, causal, q_offset=0, q_block=512,
                      probs_dtype=torch.float32):
-    raise _not_ported("qchunk_attention", "A9")
+    """Single-pass attention: q in chunks of ``q_block`` rows (the last
+    one padded), a full-K softmax per chunk, no online-softmax carry.
+    q: [B, Sq, H, hd]; k/v: [B, Skv, KV, hd]; ``q_offset`` is the absolute
+    position of q[0].  Products in float32 (the reference's
+    ``preferred_element_type``), probabilities rounded to ``probs_dtype``
+    before the product with v."""
+    Sq, hd = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(hd)
+    q_block = min(q_block, Sq)
+    qp = _q_chunks(q, k.shape[2], q_block)
+    acc = _acc_dtype(q)
+    kf = k.to(acc)
+    vp = v.to(probs_dtype).to(acc)
+    rows = torch.arange(q_block, device=q.device)
+    blocks = []
+    for qi in range(qp.shape[1]):
+        s = _chunk_scores((qp[:, qi] * scale).to(acc), kf, causal,
+                          q_offset + qi * q_block + rows)
+        p = torch.softmax(s, dim=-1).to(probs_dtype)
+        o = torch.einsum("bkgqp,bpkh->bkgqh", p.to(acc), vp)
+        blocks.append(_chunk_out(o, q.dtype))
+    return torch.cat(blocks, dim=1)[:, :Sq]
+
+
+def _flashref_fwd_impl(q, k, v, causal, q_block, probs_dtype):
+    """(out, logsumexp [B, KV, G, Sq]) of ``flashref_attention``."""
+    Sq, hd = q.shape[1], q.shape[3]
+    scale = 1.0 / math.sqrt(hd)
+    qb_ = min(q_block, Sq)
+    qp = _q_chunks(q, k.shape[2], qb_)
+    acc = _acc_dtype(q)
+    kf = k.to(acc)
+    vp = v.to(probs_dtype).to(acc)
+    rows = torch.arange(qb_, device=q.device)
+    blocks, lses = [], []
+    for qi in range(qp.shape[1]):
+        s = _chunk_scores(qp[:, qi].to(acc) * scale, kf, causal,
+                          qi * qb_ + rows)
+        lse = torch.logsumexp(s, dim=-1)                     # [B,KV,G,qb]
+        p = torch.exp(s - lse[..., None]).to(probs_dtype)
+        o = torch.einsum("bkgqp,bpkh->bkgqh", p.to(acc), vp)
+        blocks.append(_chunk_out(o, q.dtype))
+        lses.append(lse)
+    return (torch.cat(blocks, dim=1)[:, :Sq],
+            torch.cat(lses, dim=-1)[..., :Sq])
+
+
+def _flashref_bwd(causal, q_block, q, k, v, o, lse, do):
+    """(dq, dk, dv) from the saved (q, k, v, o, lse): per q chunk the
+    scores and probabilities are recomputed from the logsumexp, dk and dv
+    accumulate over the chunks in float32."""
+    B, Sq, H, hd = q.shape
+    _, Skv, KV, _ = k.shape
+    scale = 1.0 / math.sqrt(hd)
+    qb_ = min(q_block, Sq)
+    acc = _acc_dtype(q)
+    qp = _q_chunks(q, KV, qb_)
+    dop = _q_chunks(do, KV, qb_)
+    op = _q_chunks(o, KV, qb_)
+    nq = qp.shape[1]
+    lsep = F.pad(lse, (0, nq * qb_ - Sq)).reshape(B, KV, H // KV, nq, qb_)
+    kf = k.to(acc)
+    vf = v.to(acc)
+    dk = torch.zeros((B, Skv, KV, hd), dtype=acc, device=q.device)
+    dv = torch.zeros_like(dk)
+    rows = torch.arange(qb_, device=q.device)
+    dqs = []
+    for qi in range(nq):
+        qc = qp[:, qi].to(acc) * scale                       # [B,qb,KV,G,hd]
+        doc = dop[:, qi].to(acc)
+        oc = op[:, qi].to(acc)
+        s = _chunk_scores(qc, kf, causal, qi * qb_ + rows)
+        p = torch.exp(s - lsep[:, :, :, qi][..., None])      # recomputed
+        dog = doc.permute(0, 2, 3, 1, 4)                     # [B,KV,G,qb,hd]
+        dv = dv + torch.einsum("bkgqp,bkgqh->bpkh", p, dog)
+        dp = torch.einsum("bkgqh,bpkh->bkgqp", dog, vf)
+        delta = torch.sum(doc * oc, dim=-1).permute(0, 2, 3, 1)
+        ds = p * (dp - delta[..., None])
+        dqs.append(torch.einsum("bkgqp,bpkh->bqkgh", ds, kf) * scale)
+        # qc carries the 1/sqrt(hd) scale already, so dk needs none
+        dk = dk + torch.einsum("bkgqp,bqkgh->bpkh", ds, qc)
+    dq = torch.cat(dqs, dim=1)[:, :Sq].reshape(B, Sq, H, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashRef(torch.autograd.Function):
+    """The reference's ``custom_vjp``: the forward saves only q, k, v, the
+    output and the logsumexp; the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_block, probs_dtype):
+        o, lse = _flashref_fwd_impl(q, k, v, causal, q_block, probs_dtype)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_block = causal, q_block
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flashref_bwd(ctx.causal, ctx.q_block, q, k, v, o, lse,
+                                   do)
+        return dq, dk, dv, None, None, None
 
 
 def flashref_attention(q, k, v, causal=True, q_block=512,
                        probs_dtype=torch.float32):
-    raise _not_ported("flashref_attention", "A9")
+    """Flash-attention recompute semantics in tensor ops: q in chunks of
+    ``q_block`` rows, a full-K softmax per chunk whose logsumexp is kept
+    for the backward (``_FlashRef``).  ``causal``, ``q_block`` and
+    ``probs_dtype`` are not differentiable."""
+    return _FlashRef.apply(q, k, v, causal, q_block, probs_dtype)
+
+
+def _decode_attention(q, ck, cv, cache_index, probs_dtype):
+    """One decode step's attention over the cache's valid prefix
+    (positions <= ``cache_index``); q: [B, S, H, hd]; ck/cv: [B, S_max,
+    KV, hd].  Shared by the copying and the in-place cache paths, so the
+    two give the same bits."""
+    B, S, H, hd = q.shape
+    KV = ck.shape[2]
+    pos_mask = torch.arange(ck.shape[1], device=q.device) <= cache_index
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bpkh->bkgqp", qg.float(), ck.float())
+    s = s / math.sqrt(hd)
+    s = s.masked_fill(~pos_mask, NEG_INF)
+    pr = torch.softmax(s, dim=-1).to(probs_dtype)
+    o = torch.einsum("bkgqp,bpkh->bkgqh", pr.float(),
+                     cv.to(probs_dtype).float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
 
 
 def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
@@ -206,11 +358,11 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
       flash-attention kernel.
     context: cross-attention source; replaces the k/v input.
     return_kv: return the rope'd (k, v) of a cache-less call.
-    ``stacked_cache`` (decode_inplace), ``qchunk`` and ``flashref`` are not
-    ported yet and raise.
+    stacked_cache: ``decode_inplace`` - the whole [L, B, S_max, KV, hd]
+      cache pair; the new token's k/v are written in place at
+      (``layer_index``, ``cache_index``), attention runs over that layer's
+      valid prefix, and the same two tensors are returned.
     """
-    if stacked_cache is not None:
-        raise _not_ported("the decode_inplace stacked-cache branch", "A9")
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     src = context if context is not None else x
@@ -228,7 +380,16 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
 
     new_cache = None
     pdt = getattr(torch, cfg.attn_probs_dtype)
-    if kv_cache is not None:
+    if stacked_cache is not None:
+        ck_all, cv_all = stacked_cache
+        ck_all[layer_index, :, cache_index:cache_index + S] = \
+            k.to(ck_all.dtype)
+        cv_all[layer_index, :, cache_index:cache_index + S] = \
+            v.to(cv_all.dtype)
+        new_cache = (ck_all, cv_all)
+        o = _decode_attention(q, ck_all[layer_index], cv_all[layer_index],
+                              cache_index, pdt).to(x.dtype)
+    elif kv_cache is not None:
         ck, cv = kv_cache
         ck, cv = ck.clone(), cv.clone()
         ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
@@ -243,16 +404,7 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
                                         probs_dtype=pdt)
         else:
             # decode: attend over the valid cache prefix only
-            S_max = ck.shape[1]
-            pos_mask = torch.arange(S_max, device=x.device) <= cache_index
-            qg = q.reshape(B, S, KV, H // KV, hd)
-            s = torch.einsum("bqkgh,bpkh->bkgqp", qg.float(), ck.float())
-            s = s / math.sqrt(hd)
-            s = s.masked_fill(~pos_mask, NEG_INF)
-            pr = torch.softmax(s, dim=-1).to(pdt)
-            o = torch.einsum("bkgqp,bpkh->bkgqh", pr.float(),
-                             cv.to(pdt).float())
-            o = o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(x.dtype)
+            o = _decode_attention(q, ck, cv, cache_index, pdt).to(x.dtype)
     else:
         if cfg.attn_impl == "flash" and context is None:
             o = fa_ops.flash_attention(q, k, v, causal=causal)

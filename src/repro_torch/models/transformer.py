@@ -14,24 +14,27 @@ MoE configs (``moe_experts``) have ``moe_first_dense`` dense layers in
 its load-balancing loss to the forward's ``aux``.  VLM configs
 (``vision_tokens``) project the stub patch embeddings through
 ``vision_proj`` and prepend them to the token embeddings.
-``save_proj_remat`` and ``decode_inplace`` are not ported yet and raise
-(ROADMAP A9).
+
+``save_proj_remat`` keeps, per layer, the outputs of the products by the
+attention's ``wo`` and the MLP's ``w_down`` (the reference's values named
+``proj_out``) and recomputes the rest: a selective checkpoint whose policy
+finds those two products by their weights.  ``decode_inplace`` writes each
+decode step's k/v into the caller's stacked cache in place and returns the
+same tensors (the reference donates the stack to a jitted step).
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A9)")
 
 
 class DenseLayer(nn.Module):
@@ -95,9 +98,8 @@ class TransformerLM(nn.Module):
         ``extra_embeds`` [B, Sv, D] the hidden states cover the Sv vision
         positions first, then the tokens."""
         cfg = self.cfg
-        if cfg.decode_inplace and kv_caches is not None and \
-                tokens.shape[1] == 1 and extra_embeds is None:
-            raise _not_ported("the decode_inplace stacked-cache branch")
+        inplace = (cfg.decode_inplace and kv_caches is not None and
+                   tokens.shape[1] == 1 and extra_embeds is None)
         x = F.embedding(tokens, self.embed)
         if extra_embeds is not None:
             dt = torch.promote_types(extra_embeds.dtype,
@@ -111,8 +113,6 @@ class TransformerLM(nn.Module):
         inv_freqs = L.rope_freqs(cfg.hd, cfg.rope_fraction,
                                  device=tokens.device)
         remat = cfg.remat and kv_caches is None and torch.is_grad_enabled()
-        if remat and cfg.save_proj_remat:
-            raise _not_ported("the save_proj_remat checkpoint policy")
         aux = 0.0
         new_kv = {}
         stacks = [("main", self.layers)]
@@ -123,9 +123,19 @@ class TransformerLM(nn.Module):
             new_k, new_v = [], []
             for i, layer in enumerate(stack):
                 if remat:
+                    sac = {}
+                    if cfg.save_proj_remat:
+                        sac["context_fn"] = partial(
+                            create_selective_checkpoint_contexts,
+                            save_proj_policy(layer))
                     x, aux_l = checkpoint(_layer_hidden, cfg, inv_freqs,
                                           layer, x, positions,
-                                          use_reentrant=False)
+                                          use_reentrant=False, **sac)
+                elif inplace:
+                    x, _, aux_l = _layer_apply(
+                        cfg, inv_freqs, layer, x, positions,
+                        cache_index=cache_index, stacked=caches,
+                        layer_index=i)
                 else:
                     kv = None if caches is None else (caches[0][i],
                                                       caches[1][i])
@@ -135,17 +145,20 @@ class TransformerLM(nn.Module):
                         new_k.append(kv[0])
                         new_v.append(kv[1])
                 aux = aux + aux_l
-            if caches is not None:
+            if inplace:
+                new_kv[name] = caches
+            elif caches is not None:
                 new_kv[name] = (torch.stack(new_k), torch.stack(new_v))
         x = L.apply_norm(cfg.norm, x, self.ln_f)
         return x, (new_kv if kv_caches is not None else None), aux
 
 
-def _layer_apply(cfg, inv_freqs, p, x, positions, kv=None, cache_index=None):
+def _layer_apply(cfg, inv_freqs, p, x, positions, kv=None, cache_index=None,
+                 stacked=None, layer_index=None):
     h, new_kv = L.attention_block(
         p.attn, cfg, L.apply_norm(cfg.norm, x, p.ln1), positions=positions,
         causal=True, kv_cache=kv, cache_index=cache_index,
-        inv_freqs=inv_freqs)
+        inv_freqs=inv_freqs, stacked_cache=stacked, layer_index=layer_index)
     x = x + h
     xn = L.apply_norm(cfg.norm, x, p.ln2)
     if hasattr(p, "moe"):
@@ -158,6 +171,32 @@ def _layer_apply(cfg, inv_freqs, p, x, positions, kv=None, cache_index=None):
 def _layer_hidden(cfg, inv_freqs, p, x, positions):
     x, _, aux = _layer_apply(cfg, inv_freqs, p, x, positions)
     return x, aux
+
+
+def proj_weights(layer) -> tuple:
+    """The weights whose products the reference names ``proj_out``: the
+    attention's ``wo``, the MLP's ``w_down`` and, in a MoE layer, the
+    shared experts' ``w_down`` (the routed experts' are not named)."""
+    ws = [layer.attn.wo]
+    if hasattr(layer, "mlp"):
+        ws.append(layer.mlp.w_down)
+    elif hasattr(layer.moe, "shared"):
+        ws.append(layer.moe.shared.w_down)
+    return tuple(ws)
+
+
+def save_proj_policy(layer):
+    """The reference's ``save_only_these_names("proj_out")`` for one layer:
+    save the output of every ``mm`` by one of ``proj_weights(layer)``,
+    recompute everything else."""
+    keep = {id(w) for w in proj_weights(layer)}
+
+    def policy(ctx, func, *args, **kwargs):
+        if func is torch.ops.aten.mm.default and id(args[1]) in keep:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
 
 
 def unembed_matrix(model, cfg):

@@ -60,6 +60,21 @@ parameters (``param:<path>``; Whisper's ``dec_pos`` cut to its first
 batch (``train:<key>``) and the step's ``loss``, ``grad_norm`` and ``lr``.
 ``--only families`` writes these files alone (seconds).
 
+``tests/fixtures/torch/golden_tuned_<arch>.npz`` for all ten arch configs:
+the reference's ``get_tuned_config(arch, smoke=True)`` (``flashref``
+attention, ``save_proj_remat``, ``tp_bf16_reduce`` and, for MoE,
+``moe_local_dispatch``, which takes the global path without a mesh) with
+``param_dtype="float32"``: its serving loop over a prompt long enough that
+the cached prefill takes ``qchunk_attention`` in two chunks of 512 rows and
+the cache-less one ``flashref_attention``, and one training step at a
+sequence whose scores pass the 256 x 256 limit, so ``flashref`` and its
+backward run under ``save_proj_remat``.  Keys as in the families'
+fixtures (Whisper's ``dec_pos`` cut to the ``TUNED_DEC_POS_ROWS`` rows a
+run reads); where the config has ``tp_bf16_reduce``, which rounds the
+projection outputs to bf16, the same run without it is stored beside, its
+outputs under ``no_bf16_reduce:<key>``.  ``--only tuned`` writes these
+files alone (about two minutes).
+
 ``tests/fixtures/torch/golden_campaign.json``: the reference's campaign
 (``CampaignRunner``, thread scheduler, ``engine="numpy"``, the default
 retention bins and sweep axes, no cache) over ``suite:mlperf,suite:polybench``
@@ -118,6 +133,14 @@ FAMILIES = {"deepseek_moe_16b": "flash", "internvl2_1b": "ref",
 FAMILY_SERVE = {"batch": 2, "prompt_len": 24, "gen": 6, "token_seed": 0}
 FAMILY_TRAIN = {"batch": 2, "seq": 32, "data_seed": 0}
 DEC_POS_ROWS = 64
+# the tuned configs' fixtures: prefill over prompt + gen = 524 positions
+# (qchunk in chunks of 512, the last padded), a training step at seq 272
+# (272 x 272 scores pass the 256 x 256 limit: flashref)
+TUNED_SERVE = {"batch": 2, "prompt_len": 520, "gen": 4, "token_seed": 0}
+TUNED_TRAIN = {"batch": 2, "seq": 272, "data_seed": 0}
+TUNED_DEC_POS_ROWS = 528
+TUNED_OUTPUTS = ("prefill_logits", "greedy_tokens", "loss", "grad_norm",
+                 "lr")
 # entry key -> (registry workload, param overrides)
 GPU_ENTRIES = {"tinyllama_1_1b@2": ("tinyllama_1_1b", {"n_layers": 2}),
                "tinyllama_1_1b@22": ("tinyllama_1_1b", {"n_layers": 22})}
@@ -196,18 +219,28 @@ def family_path(arch: str) -> Path:
         f"golden_{arch}_smoke.npz"
 
 
-def golden_family(arch: str) -> dict:
+def tuned_path(arch: str) -> Path:
+    return Path(__file__).parent / "fixtures" / "torch" / \
+        f"golden_tuned_{arch}.npz"
+
+
+def golden_family(arch: str, cfg=None, serve_shape=FAMILY_SERVE,
+                  train_shape=FAMILY_TRAIN,
+                  dec_pos_rows=DEC_POS_ROWS) -> dict:
+    """The family fixture of ``arch``'s smoke config (``cfg``: a variant of
+    it, as the tuned fixtures pass)."""
     from repro.configs.base import ShapeCell
     from repro.data import SyntheticLMDataset
     from repro.launch.steps import make_optimizer, make_train_step
     from repro.models.api import build
-    cfg = dataclasses.replace(get_config(arch, smoke=True),
-                              attn_impl=FAMILIES[arch],
-                              param_dtype="float32")
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  attn_impl=FAMILIES[arch],
+                                  param_dtype="float32")
     api = build(cfg)
     params, _ = api.init(jax.random.PRNGKey(0))
-    B, P, G = (FAMILY_SERVE[k] for k in ("batch", "prompt_len", "gen"))
-    rng = np.random.default_rng(FAMILY_SERVE["token_seed"])
+    B, P, G = (serve_shape[k] for k in ("batch", "prompt_len", "gen"))
+    rng = np.random.default_rng(serve_shape["token_seed"])
     serve = {"tokens": rng.integers(0, cfg.vocab, (B, P + G))}
     if cfg.family == "vlm":
         serve["vision"] = rng.standard_normal(
@@ -228,26 +261,41 @@ def golden_family(arch: str) -> dict:
         outs.append(np.asarray(tok))
 
     ds = SyntheticLMDataset(
-        cfg, ShapeCell("train", "train", FAMILY_TRAIN["seq"],
-                       FAMILY_TRAIN["batch"]), seed=FAMILY_TRAIN["data_seed"])
+        cfg, ShapeCell("train", "train", train_shape["seq"],
+                       train_shape["batch"]), seed=train_shape["data_seed"])
     train = ds.get_batch(0)
     opt = make_optimizer(cfg, total_steps=1)
     _, _, m = jax.jit(make_train_step(api, opt))(params, opt.init(params),
                                                  train)
     flat = flatten(params)
     if "dec_pos" in flat:
-        flat["dec_pos"] = flat["dec_pos"][:DEC_POS_ROWS]
+        flat["dec_pos"] = flat["dec_pos"][:dec_pos_rows]
     fixture = {f"param:{k}": v for k, v in flat.items()}
     fixture.update({f"serve:{k}": v.astype(np.int64) if k == "tokens"
                     else v for k, v in serve.items()})
     fixture.update({f"train:{k}": v.astype(np.int64) if v.dtype.kind == "i"
                     else v for k, v in train.items()})
     fixture.update(prompt_len=np.int64(P), gen=np.int64(G),
-                   attn_impl=np.str_(FAMILIES[arch]),
+                   attn_impl=np.str_(cfg.attn_impl),
                    prefill_logits=prefill_logits,
                    greedy_tokens=np.stack(outs, 1).astype(np.int64),
                    **{k: np.float32(m[k]) for k in ("loss", "grad_norm",
                                                     "lr")})
+    return fixture
+
+
+def golden_tuned(arch: str) -> dict:
+    from repro.configs.base import get_tuned_config
+    cfg = dataclasses.replace(get_tuned_config(arch, smoke=True),
+                              param_dtype="float32")
+    fixture = golden_family(arch, cfg, TUNED_SERVE, TUNED_TRAIN,
+                            TUNED_DEC_POS_ROWS)
+    if cfg.tp_bf16_reduce:
+        exact = golden_family(arch, dataclasses.replace(
+            cfg, tp_bf16_reduce=False), TUNED_SERVE, TUNED_TRAIN,
+            TUNED_DEC_POS_ROWS)
+        fixture.update({f"no_bf16_reduce:{k}": exact[k]
+                        for k in TUNED_OUTPUTS})
     return fixture
 
 
@@ -385,7 +433,7 @@ def main(argv=None) -> None:
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 22])
     ap.add_argument("--only",
                     choices=["tinyllama", "zamba2", "train", "gpu",
-                             "campaign", "families"])
+                             "campaign", "families", "tuned"])
     args = ap.parse_args(argv)
     if args.only in (None, "campaign"):
         OUT_CAMPAIGN.write_text(json.dumps(golden_campaign(), indent=1)
@@ -405,7 +453,13 @@ def main(argv=None) -> None:
         for arch in FAMILIES:
             np.savez_compressed(family_path(arch), **golden_family(arch))
             print(f"wrote {family_path(arch)}")
-    if args.only in ("zamba2", "train", "gpu", "campaign", "families"):
+    if args.only in (None, "tuned"):
+        from repro.configs.base import ARCH_IDS
+        for arch in ARCH_IDS:
+            np.savez_compressed(tuned_path(arch), **golden_tuned(arch))
+            print(f"wrote {tuned_path(arch)}")
+    if args.only in ("zamba2", "train", "gpu", "campaign", "families",
+                     "tuned"):
         return
     golden = json.loads(OUT.read_text()) if OUT.exists() else {}
     golden["run"] = RUN

@@ -223,16 +223,43 @@ def test_mamba_block_prefill_and_decode(impl):
                                    rtol=1e-4)
 
 
-def test_unported_branches_say_so():
-    _, tcfg = configs("zamba2_2_7b", attn_impl="qchunk")
-    mod = layers.Attention(tcfg, torch.float32, "cpu",
-                           torch.Generator().manual_seed(0))
-    x = torch.zeros(1, 300, tcfg.d_model)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="A9"):
-        layers.attention_block(mod, tcfg, x, positions=torch.arange(300))
-    with pytest.raises(NotImplementedError, match="A9"):
-        layers.attention_block(mod, tcfg, x[:, :1], positions=None,
-                               stacked_cache=(x, x))
+def test_unported_branches_say_so(attention):
+    """Named when these branches still raised naming A9: the ``qchunk``
+    branch of a cache-less call past 256 x 256 and the ``decode_inplace``
+    stacked-cache branch now equal the reference's."""
+    jcfg, tcfg, p, mod = attention
+    jcfg = dataclasses.replace(jcfg, attn_impl="qchunk")
+    tcfg = dataclasses.replace(tcfg, attn_impl="qchunk")
+    inv_j, inv_t = jax_layers.rope_freqs(jcfg.hd, 1.0), \
+        layers.rope_freqs(tcfg.hd, 1.0)
+    x = _x((1, 300, jcfg.d_model), 8)
+    want, _ = jax_layers.attention_block(
+        p, jcfg, jnp.asarray(x), positions=jnp.arange(300), inv_freqs=inv_j)
+    with torch.no_grad():
+        got, _ = layers.attention_block(
+            mod, tcfg, torch.from_numpy(x), positions=torch.arange(300),
+            inv_freqs=inv_t)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    # one token into layer 1 of a 3-layer stack at index 5 of 8 positions
+    stack = _x((2, 3, 2, 8, jcfg.kv_heads, jcfg.hd), 9)
+    x = _x((2, 1, jcfg.d_model), 10)
+    want, (wk, wv) = jax_layers.attention_block(
+        p, jcfg, jnp.asarray(x), positions=jnp.arange(1) + 5,
+        cache_index=5, inv_freqs=inv_j,
+        stacked_cache=(jnp.asarray(stack[0]), jnp.asarray(stack[1])),
+        layer_index=1)
+    tk, tv = torch.from_numpy(stack[0]), torch.from_numpy(stack[1])
+    with torch.no_grad():
+        got, (gk, gv) = layers.attention_block(
+            mod, tcfg, torch.from_numpy(x), positions=torch.arange(1) + 5,
+            cache_index=5, inv_freqs=inv_t, stacked_cache=(tk, tv),
+            layer_index=1)
+    assert gk is tk and gv is tv
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(gk.numpy(), np.asarray(wk), atol=1e-5)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), atol=1e-5)
     # the MoE family is ported (tests/test_torch_moe.py): it builds
     moe = dataclasses.replace(get_config("deepseek_moe_16b", smoke=True),
                               param_dtype="float32")
