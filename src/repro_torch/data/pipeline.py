@@ -1,10 +1,11 @@
 """Synthetic LM data pipeline.
 
 Deterministic per (seed, step): a restart resumes mid-run bit-identically,
-which the fault-tolerance tests rely on.  Each process generates its own
-stream, keyed by its ``torch.distributed`` rank (0 when no process group is
-initialised), as the reference keys it by ``jax.process_index()``.  The
-tokens are the reference's bit for bit (the same numpy draws), as int64.
+which the fault-tolerance tests rely on.  Each host generates its own
+stream, keyed by its node index (``process_index``: 0 on one host), as the
+reference keys it by ``jax.process_index()``, the index of the host and
+not of a device; every rank of a host builds the same global batch.  The tokens are the reference's bit
+for bit (the same numpy draws), as int64.
 
 Sequences are Zipf-distributed token streams with injected n-gram
 structure so the loss actually decreases during the example runs (pure
@@ -14,6 +15,7 @@ uniform noise has no learnable signal).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -22,10 +24,15 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 
 
 def process_index() -> int:
+    """The index of this process's node: ``rank // local_world_size``
+    (``LOCAL_WORLD_SIZE`` as ``torchrun`` sets it, else the whole world on
+    one host), 0 without a process group.  A torch rank is one device; the
+    reference's ``jax.process_index()`` is one host."""
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+    return dist.get_rank() // local
 
 
 @dataclasses.dataclass
@@ -66,3 +73,4 @@ class SyntheticLMDataset:
 def to_device(batch: dict, device) -> dict:
     """Each array of ``batch`` as a tensor on ``device``."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
