@@ -84,7 +84,16 @@ version on the card, and drives the port's two paths:
   (save_proj_remat = plain remat within 1e-6; the tuned step against the
   untuned ``attn_impl="ref"`` one), and the ten arch configs' tuned smoke
   configs against the JAX reference's ``golden_tuned_<arch>.npz``; no
-  kernel launches on this path and no plain version runs.
+  kernel launches on this path and no plain version runs;
+* the mesh (``mesh``): ``launch.train.main`` on TinyLlama-1.1B as
+  published (bf16, flash attention, batch 4 x 2048, three steps) and
+  ``launch.serve.main`` on Zamba2-2.7B as published (flash, batch 4,
+  prompt 1008 + 16), each with ``--mesh host`` (a (1, 1) DeviceMesh over
+  a world of one, NCCL; parameters, optimizer state, batch and caches as
+  DTensors, K2-K5 through ``local_map``) beside ``--mesh none``: the same
+  K2/K3/K4/K5 launch counts and no plain-version call, losses within
+  2e-3 relative, equal tokens, no process group left afterwards.  One
+  card shows no multi-rank sharding; the CPU gloo tests do.
 
 It times each kernel at the shapes its path gives it: the lifetime scan
 right after the profiling path (also on one segment that crosses every
@@ -104,9 +113,10 @@ and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
 and address structures), ``cli``, ``check``, ``full``, ``sweep`` of the
 systolic session, ``gpu``, ``sweep`` of the GPU-cache session,
 ``campaign``, ``tpu``, ``golden``, ``serve``, ``train_golden``, ``train``,
-``family_golden``, ``families``, ``tuned``;
-``ssd_no_backward`` after K5's ``kernel_check``), then the
-``kernels`` line, then ``{"ok": true, "device": {...}}`` as the last line.
+``family_golden``, ``families``, ``tuned``, ``mesh``;
+``ssd_no_backward`` after K5's ``kernel_check``), then the ``walls``
+line (each phase's wall seconds), then the ``kernels`` line, then
+``{"ok": true, "device": {...}}`` as the last line.
 Any failed phase raises: nothing is caught, nothing falls back to the CPU or
 to a plain version.
 """
@@ -341,6 +351,18 @@ TUNED_GOLDEN_TOL = {"no_bf16_reduce": FAMILY_GOLDEN_TOL,
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+# each phase's wall seconds, in the order they ran
+WALLS: dict = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        WALLS[name] = WALLS.get(name, 0.0) + time.perf_counter() - t0
 
 
 def cuda_ms(fn, runs: int) -> list:
@@ -2054,6 +2076,175 @@ def phase_tuned(torch, np, device, smi) -> None:
          serve=serve, decode_step_split=split, train=train,
          golden_tuned=golden, golden_tolerance=TUNED_GOLDEN_TOL,
          kernel_launches=counts, phase_s=time.perf_counter() - t0)
+
+
+# the mesh phase: the launchers' --mesh host beside --mesh none
+MESH = {"train_arch": "tinyllama_1_1b", "batch": 4, "seq": 2048,
+        "steps": 3, "serve_arch": "zamba2_2_7b", "serve_batch": 4,
+        "prompt_len": 1008, "gen": 16}
+# --mesh host against --mesh none, bf16: each step's loss, relative
+MESH_LOSS_REL_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def no_ssd_plain_calls(what):
+    """Count calls of K5's plain version for the duration; raise if there
+    was one."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    real = ssd_k.ssd_scan_plain
+    calls = {"ssd_scan_plain": 0}
+
+    def call(*args, **kwargs):
+        calls["ssd_scan_plain"] += 1
+        return real(*args, **kwargs)
+    ssd_k.ssd_scan_plain = call
+    try:
+        yield calls
+    finally:
+        ssd_k.ssd_scan_plain = real
+    if calls["ssd_scan_plain"]:
+        raise AssertionError(f"{what}: plain-version calls on the card "
+                             f"{calls}")
+
+
+def mesh_launch(torch, device, what, run):
+    """``run()`` with every kernel count at 0 before it, no plain-version
+    call allowed and the peak memory reset; (its result, launches, plain
+    calls, peak bytes)."""
+    import torch.distributed as dist
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_kernel_counts()
+    with no_plain_calls(what) as fa_calls, no_ssd_plain_calls(what) as ssd:
+        out = run()
+    torch.cuda.synchronize(device)
+    if dist.is_initialized():
+        raise AssertionError(f"{what}: a process group is left initialized")
+    return (out, kernel_counts(), sum(fa_calls.values()) + sum(ssd.values()),
+            torch.cuda.max_memory_allocated(device))
+
+
+def mesh_train(torch, device, mesh) -> dict:
+    """Three steps of ``launch.train.main`` at batch 4 x 2048 with the
+    kernels, ``--mesh`` ``mesh``; each step timed around the step function
+    (the loss is read each step, so the step has ended).  The supervisor's
+    closing checkpoint (15 GB of parameters and AdamW state, ≈ 30 s of
+    disk writes) is counted and not written: the phase measures steps."""
+    import tempfile
+    import repro_torch.launch.train as train_mod
+    real, real_ckpt = train_mod.make_train_step, train_mod.CheckpointManager
+    times, saves = [], []
+
+    class CountedCheckpoints(real_ckpt):
+        def save(self, step, tree):
+            saves.append(step)
+            return self._step_dir(step)
+
+    def timed_step(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def run(*a):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+            return out
+        return run
+    ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    argv = ["--arch", MESH["train_arch"], "--steps", str(MESH["steps"]),
+            "--batch", str(MESH["batch"]), "--seq", str(MESH["seq"]),
+            "--save-every", "1000", "--ckpt-dir", ckpt, "--mesh", mesh]
+    train_mod.make_train_step = timed_step
+    train_mod.CheckpointManager = CountedCheckpoints
+    try:
+        log, launches, plain, peak = mesh_launch(
+            torch, device, f"mesh train --mesh {mesh}",
+            lambda: train_mod.main(argv, device=device, attn_impl="flash"))
+    finally:
+        train_mod.make_train_step = real
+        train_mod.CheckpointManager = real_ckpt
+        import shutil
+        shutil.rmtree(ckpt, ignore_errors=True)
+    steady = statistics.median(times[1:])
+    return {"losses": [m["loss"] for m in log], "step_s": times,
+            "tokens_per_s": MESH["batch"] * MESH["seq"] / steady,
+            "peak_bytes": peak, "launches": launches, "plain_calls": plain,
+            "checkpoint_saves_not_written": saves}
+
+
+def mesh_serve(torch, device, mesh) -> dict:
+    """``launch.serve.main`` with the kernels, ``--mesh`` ``mesh``; the
+    ``Generation`` is read from the serving loop it calls."""
+    import repro_torch.launch.serve as serve_mod
+    real = serve_mod.generate
+    got = {}
+
+    def capture(*args, **kwargs):
+        got["g"] = real(*args, **kwargs)
+        return got["g"]
+    argv = ["--arch", MESH["serve_arch"], "--batch",
+            str(MESH["serve_batch"]), "--prompt-len", str(MESH["prompt_len"]),
+            "--gen", str(MESH["gen"]), "--mesh", mesh]
+    serve_mod.generate = capture
+    try:
+        tokens, launches, plain, peak = mesh_launch(
+            torch, device, f"mesh serve --mesh {mesh}",
+            lambda: serve_mod.main(argv, device=device, attn_impl="flash"))
+    finally:
+        serve_mod.generate = real
+    g = got["g"]
+    return {"tokens": tokens, "prefill_s": g.prefill_s,
+            "decode_tokens_per_s": MESH["serve_batch"] * (MESH["gen"] - 1)
+            / g.decode_s, "peak_bytes": peak, "launches": launches,
+            "plain_calls": plain}
+
+
+def phase_mesh(torch, np, device, smi) -> None:
+    """The launchers under ``--mesh host`` (a (1, 1) mesh over a world of
+    one) beside ``--mesh none``, in the same call: equal K2-K5 launch
+    counts, no plain call, losses within ``MESH_LOSS_REL_TOL``, equal
+    tokens."""
+    train = {m: mesh_train(torch, device, m) for m in ("none", "host")}
+    serve = {m: mesh_serve(torch, device, m) for m in ("none", "host")}
+    for what, runs in (("train", train), ("serve", serve)):
+        if runs["host"]["launches"] != runs["none"]["launches"]:
+            raise AssertionError(f"mesh {what}: launches "
+                                 f"{runs['host']['launches']} under the mesh "
+                                 f"!= {runs['none']['launches']} without")
+    for what, runs, names in (
+            ("train", train, ("flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv")),
+            ("serve", serve, ("flash_attention_fwd", "ssd_scan"))):
+        if not all(runs["none"]["launches"][k] for k in names):
+            raise AssertionError(f"mesh {what}: a kernel never launched "
+                                 f"{runs['none']['launches']}")
+    a = np.asarray(train["none"]["losses"])
+    b = np.asarray(train["host"]["losses"])
+    rel = (np.abs(b - a) / np.abs(a)).tolist()
+    if len(a) != MESH["steps"] or max(rel) > MESH_LOSS_REL_TOL:
+        raise AssertionError(f"mesh train: losses {b.tolist()} under the "
+                             f"mesh, {a.tolist()} without")
+    tokens_equal = bool(np.array_equal(serve["host"]["tokens"],
+                                       serve["none"]["tokens"]))
+    if not tokens_equal:
+        raise AssertionError("mesh serve: tokens differ under the mesh")
+    for runs in (train, serve):
+        for run in runs.values():
+            run.pop("tokens", None)
+    emit("mesh", nvidia_smi=smi,
+         mesh="(1, 1) ('data', 'model') over a world of one (NCCL)",
+         train={"arch": MESH["train_arch"], "dtype": "bfloat16",
+                "batch": MESH["batch"], "seq": MESH["seq"], **train},
+         serve={"arch": MESH["serve_arch"], "batch": MESH["serve_batch"],
+                "prompt_len": MESH["prompt_len"], "gen": MESH["gen"],
+                **serve},
+         loss_rel_diff=rel, loss_tol=MESH_LOSS_REL_TOL,
+         losses_bit_equal=bool(np.array_equal(a, b)),
+         tokens_equal=tokens_equal,
+         process_group_after=False)
+
 
 
 def kernel_label(mangled: str) -> str:
@@ -4063,43 +4254,51 @@ def main() -> int:
     # float32 products in full float32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
+    timed("build", phase_build)
 
     golden = json.loads(GOLDEN.read_text())
-    check = phase_kernel_check(torch, device)
-    fa_check = phase_fa_check(torch, device)
-    ssd_check = phase_ssd_check(torch, device)
-    phase_ssd_no_backward(torch, device)
-    phase_cli(golden)
-    phase_check()
-    full = phase_full(torch, np, device, golden)
+    check = timed("kernel_check", phase_kernel_check, torch, device)
+    fa_check = timed("fa_check", phase_fa_check, torch, device)
+    ssd_check = timed("ssd_check", phase_ssd_check, torch, device)
+    timed("ssd_no_backward", phase_ssd_no_backward, torch, device)
+    timed("cli", phase_cli, golden)
+    timed("check", phase_check)
+    full = timed("full", phase_full, torch, np, device, golden)
     # K1 is timed beside its own path, before the serving and training
     # phases, and its inputs are freed before them
-    rows = [time_lifetime_scan(torch, full, check)]
+    rows = [timed("time_lifetime_scan", time_lifetime_scan, torch, full,
+                  check)]
     sys_session = full["session"]
     composes = [full["b7"]]
     del full
     # the systolic path's sweep beside its session (B7 held against its
     # plain version first, timed after), freed before the GPU-cache path
-    b7_check = phase_compose_policy_check(torch, np, device)
-    sweeps = [phase_sweep(torch, np, device, f"systolic@{FULL_LAYERS}",
-                          sys_session, two_layer_systolic, cli=True)]
-    b7_rows = time_compose_policy(torch, np, device, sys_session, b7_check)
+    b7_check = timed("compose_policy_check", phase_compose_policy_check,
+                     torch, np, device)
+    sweeps = [timed("sweep_systolic", phase_sweep, torch, np, device,
+                    f"systolic@{FULL_LAYERS}", sys_session,
+                    two_layer_systolic, cli=True)]
+    b7_rows = timed("time_compose_policy", time_compose_policy, torch, np,
+                    device, sys_session, b7_check)
     refs = [weakref.ref(x) for pair in sys_session._stats.values()
             for x in pair if x is not None]
     before = memo_state(torch)
     del sys_session
     check_session_freed(torch, refs, before)
-    b6_check = phase_cache_replay_check(torch, np, device)
-    gpu = phase_gpu(torch, np, device)
+    b6_check = timed("cache_replay_check", phase_cache_replay_check,
+                     torch, np, device)
+    gpu = timed("gpu", phase_gpu, torch, np, device)
     # B6 is timed beside its own path, the GPU-cache path's sweep runs on
     # its session; both are freed before serving
-    b6_row = time_cache_replay(torch, np, device, gpu, b6_check)
-    sweeps.append(phase_sweep(torch, np, device, f"gpu@{FULL_LAYERS}",
-                              gpu["session"], two_layer_gpu))
+    b6_row = timed("time_cache_replay", time_cache_replay, torch, np,
+                   device, gpu, b6_check)
+    sweeps.append(timed("sweep_gpu", phase_sweep, torch, np, device,
+                        f"gpu@{FULL_LAYERS}", gpu["session"],
+                        two_layer_gpu))
     # every B7 kernel against its plain version at the other skew: the
     # wide grid on the GPU-cache session's largest subpartition
-    skew = b7_gpu_skew_check(torch, np, device, gpu["session"])
+    skew = timed("b7_gpu_skew_check", b7_gpu_skew_check, torch, np,
+                 device, gpu["session"])
     for row in b7_rows:
         row["gpu_skew_check"] = skew
     composes.append(gpu["b7"])
@@ -4107,27 +4306,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the campaign phase, after the GPU-cache session is freed: its B6 and
     # B7 launches add to the rows' main-path counts
-    campaign = phase_campaign(torch, device)
+    campaign = timed("campaign", phase_campaign, torch, device)
     b6_row["launches"] += campaign["b6"]
     # the graph-walking backend on the models' own steps: B7 composes them
-    composes += phase_tpu(torch, np, device)
+    composes += timed("tpu", phase_tpu, torch, np, device)
     for row in b7_rows:
         key = B7_LAUNCH_KEYS[row["name"]]
         row["launches"] = sum(run[key] for run in composes) + sum(
             sw["launches"][key] for sw in sweeps) + campaign["b7"][key]
-    bwd_check = phase_bwd_check(torch, device)
-    phase_golden(torch, np, device)
-    serve = phase_serve(torch, device)
-    phase_train_golden(torch, np, device)
-    train = phase_train(torch, device)
-    phase_family_golden(torch, np, device)
-    families = phase_families(torch, device)
-    phase_tuned(torch, np, device, smi)
-    rows += time_serving_kernels(torch, device, serve, fa_check, ssd_check)
-    rows += time_training_kernels(torch, device, train, bwd_check, rows[1])
-    time_family_kernels(torch, device, rows, families)
+    bwd_check = timed("bwd_check", phase_bwd_check, torch, device)
+    timed("golden", phase_golden, torch, np, device)
+    serve = timed("serve", phase_serve, torch, device)
+    timed("train_golden", phase_train_golden, torch, np, device)
+    train = timed("train", phase_train, torch, device)
+    timed("family_golden", phase_family_golden, torch, np, device)
+    families = timed("families", phase_families, torch, device)
+    timed("tuned", phase_tuned, torch, np, device, smi)
+    timed("mesh", phase_mesh, torch, np, device, smi)
+    rows += timed("time_serving_kernels", time_serving_kernels, torch,
+                  device, serve, fa_check, ssd_check)
+    rows += timed("time_training_kernels", time_training_kernels, torch,
+                  device, train, bwd_check, rows[1])
+    timed("time_family_kernels", time_family_kernels, torch, device, rows,
+          families)
     rows.append(b6_row)
     rows += b7_rows
+    emit("walls", seconds={k: round(v, 3) for k, v in WALLS.items()},
+         total_s=round(sum(WALLS.values()), 3))
     print(json.dumps({"kernels": rows}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

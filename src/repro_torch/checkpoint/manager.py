@@ -16,7 +16,11 @@ Guarantees used by the fault-tolerance layer:
     and the next save removes.
   - *retention*: keep the latest ``keep`` complete checkpoints.
   - leaves are stored whole on the host; ``restore`` puts each back on the
-    device of its like-state leaf.
+    device of its like-state leaf, and onto the mesh: by ``shardings``
+    (a tree of ``sharding.Sharding`` mirroring the state) or, where that
+    gives none, by the like-leaf's own placements when it is a DTensor.
+    Under a process group every rank gathers its DTensor leaves whole and
+    rank 0 alone writes.
 bfloat16 leaves are stored as their int16 bit pattern (numpy has no
 bfloat16) and viewed back, so the round trip is exact.
 """
@@ -29,6 +33,8 @@ import shutil
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.compat import distribute_local, full, is_dtensor
 
 # numpy cannot hold these dtypes; store a same-width integer bit-view
 _BIT_VIEWS = {torch.bfloat16: torch.int16}
@@ -52,6 +58,31 @@ def unflatten(like, leaves: dict, prefix: str = ""):
         return {k: unflatten(like[k], leaves, f"{prefix}{k}/")
                 for k in like}
     return leaves[prefix[:-1]]
+
+
+def _flat_shardings(tree, prefix: str = "") -> list:
+    """[(key path, Sharding or None)] of a tree of nested dicts."""
+    if tree is None or not isinstance(tree, dict):
+        return [] if tree is None else [(prefix[:-1], tree)]
+    out = []
+    for k in sorted(tree):
+        out += _flat_shardings(tree[k], f"{prefix}{k}/")
+    return out
+
+
+def _group():
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized() and \
+        dist.get_world_size() > 1
+
+
+def _writer() -> bool:
+    return not _group() or torch.distributed.get_rank() == 0
+
+
+def _barrier() -> None:
+    if _group():
+        torch.distributed.barrier()
 
 
 class CheckpointManager:
@@ -81,13 +112,17 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, step: int, tree) -> str:
         final = self._step_dir(step)
+        # every rank gathers (a collective); one rank writes
+        leaves = [(p, full(x.detach())) for p, x in flatten(tree)]
+        if not _writer():
+            _barrier()
+            return final
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        leaves = flatten(tree)
         for i, (_, leaf) in enumerate(leaves):
-            t = leaf.detach()
+            t = leaf
             if t.dtype in _BIT_VIEWS:
                 t = t.view(_BIT_VIEWS[t.dtype])
             path = os.path.join(tmp, f"leaf_{i:05d}.npy")
@@ -112,11 +147,15 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
+        _barrier()
         return final
 
-    def restore(self, like_tree, step: int | None = None):
+    def restore(self, like_tree, step: int | None = None, shardings=None):
         """(tree shaped like ``like_tree`` with the saved leaves, each on its
-        like-leaf's device, step)."""
+        like-leaf's device, step).  ``shardings``: a tree of
+        ``Sharding`` (or None) leaves mirroring ``like_tree``, which puts
+        each leaf onto its mesh placements; a DTensor like-leaf without
+        one keeps its own."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
@@ -130,13 +169,20 @@ class CheckpointManager:
                 f"checkpoint leaves {meta['paths'][:4]}... do not match the "
                 f"state's {paths[:4]}... ({meta['n_leaves']} vs "
                 f"{len(paths)} leaves)")
+        placed = dict(_flat_shardings(shardings))
         out = {}
         for i, (path, ref) in enumerate(like):
             t = torch.from_numpy(np.load(os.path.join(d, f"leaf_{i:05d}.npy")))
             want = getattr(torch, meta["dtypes"][i])
             if want in _BIT_VIEWS:
                 t = t.view(want)
-            out[path] = t.to(ref.device)
+            t = t.to(ref.device)
+            target = placed.get(path)
+            if target is not None:
+                t = distribute_local(t, target.mesh, target.placements)
+            elif is_dtensor(ref):
+                t = distribute_local(t, ref.device_mesh, ref.placements)
+            out[path] = t
         return unflatten(like_tree, out), meta["step"]
 
     # ------------------------------------------------------------------

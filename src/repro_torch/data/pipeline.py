@@ -4,7 +4,8 @@ Deterministic per (seed, step): a restart resumes mid-run bit-identically,
 which the fault-tolerance tests rely on.  Each host generates its own
 stream, keyed by its node index (``process_index``: 0 on one host), as the
 reference keys it by ``jax.process_index()``, the index of the host and
-not of a device; every rank of a host builds the same global batch.  The tokens are the reference's bit
+not of a device; every rank of a host builds the same global batch and
+``shard_batch`` takes its shard of it.  The tokens are the reference's bit
 for bit (the same numpy draws), as int64.
 
 Sequences are Zipf-distributed token streams with injected n-gram
@@ -74,3 +75,15 @@ def to_device(batch: dict, device) -> dict:
     """Each array of ``batch`` as a tensor on ``device``."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
+
+def shard_batch(batch: dict, shardings: dict | None, device) -> dict:
+    """Each array of the global ``batch`` as a tensor on ``device``, placed
+    by its logical template in ``shardings`` on the configured mesh: each
+    rank keeps its own shard (every rank of a host holds the same batch).
+    Without a mesh or templates, ``to_device``."""
+    from repro_torch.distributed import sharding as shd
+    out = to_device(batch, device)
+    if shardings is None or shd.get_mesh() is None:
+        return out
+    return {k: shd.place(v, shardings[k]) if k in shardings else v
+            for k, v in out.items()}

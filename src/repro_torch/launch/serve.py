@@ -6,8 +6,11 @@
 Runs on the CUDA device (and raises without one); a caller may pass
 ``main(argv, device="cpu")``, as the tests do.  The kernels run when the
 config asks for them (``attn_impl="flash"``, set with
-``dataclasses.replace``), as in the reference; the CLI serves the config as
-published.
+``dataclasses.replace``, or ``main(argv, attn_impl="flash")``), as in the
+reference; the CLI serves the config as published.  ``--mesh host``
+serves over a ``DeviceMesh`` of the world (parameters, batch and caches
+as DTensors), making and destroying a process group for a world of one
+as ``launch/train.py`` does.
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ import time
 import torch
 
 from repro_torch.configs.base import ShapeCell, get_config
+from repro_torch.data import shard_batch
 from repro_torch.device import resolve_device
-from repro_torch.models.api import ModelApi, build
+from repro_torch.distributed.compat import full
+from repro_torch.launch.mesh import set_up_mesh, tear_down_mesh
+from repro_torch.models.api import ModelApi, build, shard_params
 
 
 @dataclasses.dataclass
@@ -41,7 +47,8 @@ def generate(api: ModelApi, batch, prompt_len: int, gen: int) -> Generation:
     """The reference's serving loop: prefill over the whole batch (its
     ``tokens``, prompt + generation region, size the cache; a VLM's
     ``vision`` and Whisper's ``frames`` go in too), then ``gen - 1`` greedy
-    decode steps at positions ``prompt_len + i``."""
+    decode steps at positions ``prompt_len + i``.  Under a mesh the
+    tokens and logits come back whole on every rank."""
     device = batch["tokens"].device
     _sync(device)
     t0 = time.perf_counter()
@@ -59,11 +66,11 @@ def generate(api: ModelApi, batch, prompt_len: int, gen: int) -> Generation:
         outs.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t1
-    return Generation(torch.stack(outs, 1), prefill_logits, t_prefill,
-                      t_decode)
+    return Generation(full(torch.stack(outs, 1)), full(prefill_logits),
+                      t_prefill, t_decode)
 
 
-def main(argv=None, *, device=None):
+def main(argv=None, *, device=None, attn_impl=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama_1_1b")
     ap.add_argument("--smoke", action="store_true")
@@ -74,13 +81,20 @@ def main(argv=None, *, device=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(device)
-    if args.mesh == "host":
-        raise NotImplementedError(
-            "--mesh host needs distributed/, not ported to repro_torch yet "
-            "(ROADMAP A11)")
+    try:
+        set_up_mesh(args.mesh, device)
+        return _serve(args, device, attn_impl)
+    finally:
+        tear_down_mesh()
+
+
+def _serve(args, device, attn_impl):
     cfg = get_config(args.arch, smoke=args.smoke)
+    if attn_impl is not None:
+        cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     api = build(cfg, device=device,
                 generator=torch.Generator(device=device).manual_seed(0))
+    shard_params(api)
 
     # prefill cache sized for prompt + generation; only the first
     # prompt_len tokens are "real", the rest are written during decode
@@ -89,6 +103,7 @@ def main(argv=None, *, device=None):
     batch = api.make_batch(torch.Generator(device=device).manual_seed(1),
                            shape)
     batch["tokens"] = batch["tokens"][:, :total]
+    batch = shard_batch(batch, api.batch_shardings(shape), device)
     out = generate(api, batch, args.prompt_len, args.gen)
 
     toks_per_s = args.batch * (args.gen - 1) / max(out.decode_s, 1e-9)

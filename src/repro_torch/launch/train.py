@@ -9,13 +9,24 @@ straggler monitoring, deterministic data, and optional fault injection.
 Runs on the CUDA device (and raises without one); a caller may pass
 ``main(argv, device="cpu")``, as the tests do.  The flash-attention
 kernels run when the config asks for them (``attn_impl="flash"``), as in
-the reference.  ``--mesh`` other than ``none`` needs the distributed port
-(ROADMAP A11) and raises.
+the reference; the CLI trains the config as published, and a caller may
+pass ``main(argv, attn_impl="flash")``.
+
+``--mesh host|single|multi`` trains over a ``DeviceMesh``: parameters,
+optimizer state and batches are DTensors placed by their logical
+templates.  A torch mesh needs a process group: ``main`` makes one for a
+world of one (``--mesh host`` on one card), or joins ``torchrun``'s
+(``torchrun --nproc-per-node N -m repro_torch.launch.train --mesh
+host``), and destroys a group it made before it returns.  ``single`` and
+``multi`` are the production meshes and raise on a world that is not 256
+or 512 processes.  The default is ``none``, unlike the reference's
+``host``: a library call should not make a process group unasked.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import tempfile
@@ -25,15 +36,17 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ShapeCell, get_config
-from repro_torch.data import SyntheticLMDataset, to_device
+from repro_torch.data import SyntheticLMDataset, shard_batch
 from repro_torch.device import resolve_device
+from repro_torch.distributed import compat
+from repro_torch.launch.mesh import set_up_mesh, tear_down_mesh
 from repro_torch.launch.steps import make_optimizer, make_train_step
-from repro_torch.models.api import build
+from repro_torch.models.api import build, shard_params
 from repro_torch.optim import compress_gradients
 from repro_torch.runtime import TrainSupervisor
 
 
-def main(argv=None, *, device=None):
+def main(argv=None, *, device=None, attn_impl=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama_1_1b")
     ap.add_argument("--smoke", action="store_true")
@@ -52,14 +65,26 @@ def main(argv=None, *, device=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(device)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs distributed/, not ported to "
-            "repro_torch yet (ROADMAP A11)")
+    try:
+        set_up_mesh(args.mesh, device)
+        return _train(args, device, attn_impl)
+    finally:
+        tear_down_mesh()
+
+
+def _is_writer() -> bool:
+    dist = torch.distributed
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _train(args, device, attn_impl):
     cfg = get_config(args.arch, smoke=args.smoke)
+    if attn_impl is not None:
+        cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     shape = ShapeCell("train", "train", args.seq, args.batch)
     api = build(cfg, device=device,
                 generator=torch.Generator(device=device).manual_seed(0))
+    shard_params(api)
     ds = SyntheticLMDataset(cfg, shape, seed=0)
     opt = make_optimizer(cfg, total_steps=args.steps)
     train_step = make_train_step(api, opt,
@@ -87,10 +112,11 @@ def main(argv=None, *, device=None):
         if step == args.inject_fault_at and not faulted["done"]:
             faulted["done"] = True
             raise RuntimeError("injected fault (host died)")
-        batch = to_device(ds.get_batch(step), device)
+        batch = shard_batch(ds.get_batch(step), api.batch_shardings(shape),
+                            device)
         params, opt_state, m = train_step(state["params"], state["opt"],
                                           batch)
-        m = {k: float(v) for k, v in m.items()}
+        m = {k: float(compat.full(v)) for k, v in m.items()}
         metrics_log.append({"step": step, **m})
         if step % 10 == 0:
             print(f"step {step:5d} loss={m['loss']:.4f} "
@@ -107,8 +133,9 @@ def main(argv=None, *, device=None):
     if metrics_log:
         first, last = metrics_log[0]["loss"], metrics_log[-1]["loss"]
         print(f"loss {first:.4f} -> {last:.4f}")
-    with open(os.path.join(args.ckpt_dir, "metrics.json"), "w") as f:
-        json.dump(metrics_log, f)
+    if _is_writer():
+        with open(os.path.join(args.ckpt_dir, "metrics.json"), "w") as f:
+            json.dump(metrics_log, f)
     return metrics_log
 
 

@@ -6,6 +6,9 @@
   api.decode(cache, token, index) -> (logits, cache)
   batch_specs(cfg, shape)       -> TensorSpec per batch entry
   make_batch(cfg, generator, shape) -> concrete synthetic batch
+  param_templates(api)          -> logical sharding template per parameter
+  batch_shardings(cfg, shape)   -> logical templates mirroring batch_specs
+  shard_params(api)             -> the model's parameters onto the mesh
 
 Every family of the reference is ported: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``ssm``, ``hybrid`` and ``audio`` (``whisper``), each
@@ -27,6 +30,8 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import BATCH, FSDP, MODEL
 
 
 class TensorSpec(NamedTuple):
@@ -47,13 +52,19 @@ class ModelApi:
         return self.model.embed.device
 
     def loss(self, batch):
-        return self.loss_fn(self.model, batch)
+        with shd.context():
+            return self.loss_fn(self.model, batch)
 
     def prefill(self, batch):
-        return self.prefill_fn(self.model, batch)
+        with shd.context():
+            return self.prefill_fn(self.model, batch)
 
     def decode(self, cache, token, index):
-        return self.decode_fn(self.model, cache, token, index)
+        with shd.context():
+            return self.decode_fn(self.model, cache, token, index)
+
+    def batch_shardings(self, shape: ShapeCell):
+        return batch_shardings(self.cfg, shape)
 
     def make_batch(self, generator, shape: ShapeCell):
         return make_batch(self.cfg, generator, shape, device=self.device)
@@ -131,3 +142,84 @@ def make_batch(cfg: ArchConfig, generator, shape: ShapeCell, device=None):
             out[name] = torch.randn(spec.shape, generator=generator,
                                     device=device).to(spec.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Logical sharding templates (the reference's spec trees)
+# ---------------------------------------------------------------------------
+
+_LM = {"embed": (None, MODEL), "unembed": (None, MODEL),
+       "vision_proj": (None, None), "enc_pos": (None, None),
+       "dec_pos": (None, None)}
+_ATTENTION = {"wq": (FSDP, MODEL), "wk": (FSDP, MODEL), "wv": (FSDP, MODEL),
+              "wo": (MODEL, FSDP), "bq": (MODEL,), "bk": (MODEL,),
+              "bv": (MODEL,)}
+_MLP = {"w_gate": (FSDP, MODEL), "w_up": (FSDP, MODEL),
+        "w_down": (MODEL, FSDP)}
+_MAMBA = {"in_proj": (FSDP, MODEL), "conv_w": (None, MODEL),
+          "conv_b": (MODEL,), "norm_g": (MODEL,), "out_proj": (MODEL, FSDP)}
+# the expert-parallel dispatch (``moe_local_dispatch``) needs whole
+# experts per rank
+_MOE_LOCAL = {"router": (None, None), "we_gate": (MODEL, None, None),
+              "we_up": (MODEL, None, None), "we_down": (MODEL, None, None)}
+_MOE = {"router": (None, None), "we_gate": (MODEL, FSDP, None),
+        "we_up": (MODEL, FSDP, None), "we_down": (MODEL, None, FSDP)}
+
+
+def _module_templates(cfg: ArchConfig, module: nn.Module) -> dict:
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    if isinstance(module, L.Attention):
+        return _ATTENTION
+    if isinstance(module, L.MLP):
+        return _MLP
+    if isinstance(module, L.MoE):
+        return _MOE_LOCAL if cfg.moe_local_dispatch else _MOE
+    if isinstance(module, M.MambaBlock):
+        return _MAMBA
+    return _LM
+
+
+def param_templates(api: ModelApi) -> dict:
+    """``{parameter name: template}`` for every parameter of ``api``'s
+    model: the reference's spec tree, with a stacked group's leading layer
+    axis dropped (a per-layer module holds one row of it).  A parameter
+    the reference templates with None on every dim (norm gains, the SSM's
+    ``A_log``/``D``/``dt_bias``) is replicated."""
+    out = {}
+    for mod_name, module in api.model.named_modules():
+        table = _module_templates(api.cfg, module)
+        for leaf, p in module.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            out[name] = table.get(leaf, (None,) * p.dim())
+    return out
+
+
+def shard_params(api: ModelApi) -> dict:
+    """Replace every parameter of ``api``'s model by a DTensor placed by
+    ``param_templates`` on the configured mesh (each rank keeps its own
+    shard of the whole tensor it built from the same seed); returns the
+    templates.  Without a mesh nothing changes."""
+    templates = param_templates(api)
+    if shd.get_mesh() is None:
+        return templates
+    for mod_name, module in api.model.named_modules():
+        for leaf, p in list(module.named_parameters(recurse=False)):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            module._parameters[leaf] = nn.Parameter(
+                shd.place(p.detach(), templates[name]),
+                requires_grad=p.requires_grad)
+    return templates
+
+
+def batch_shardings(cfg: ArchConfig, shape: ShapeCell) -> dict:
+    """Logical templates mirroring ``batch_specs``."""
+    if shape.kind in ("train", "prefill"):
+        out = {k: (BATCH, None) for k in ("tokens", "labels")
+               if not (shape.kind == "prefill" and k == "labels")}
+        if cfg.family == "vlm":
+            out["vision"] = (BATCH, None, None)
+        if cfg.family == "audio":
+            out["frames"] = (BATCH, None, None)
+        return out
+    return {"token": (BATCH,), "index": ()}

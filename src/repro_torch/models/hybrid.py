@@ -12,8 +12,11 @@ import torch
 import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import BATCH, constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models.transformer import kv_cache_template
 
 
 def n_attn_apps(cfg: ArchConfig) -> int:
@@ -49,7 +52,7 @@ class HybridLM(nn.Module):
     def forward(self, tokens, cache=None, cache_index=None):
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self.embed[tokens]
+        x = constrain(self.embed[tokens], (BATCH, None, None))
         A, G = cfg.attn_every, n_attn_apps(cfg)
         positions = torch.arange(S, device=tokens.device)
         if cache_index is not None:
@@ -98,8 +101,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
     c = M.init_ssm_cache(cfg, cfg.n_layers, batch, device)
     G = n_attn_apps(cfg)
     shape = (G, batch, max_seq, cfg.kv_heads, cfg.hd)
-    c["attn_k"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
-    c["attn_v"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    for name in ("attn_k", "attn_v"):
+        c[name] = shd.place(torch.zeros(shape, dtype=torch.bfloat16,
+                                        device=device), kv_cache_template())
     return c
 
 

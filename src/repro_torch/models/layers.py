@@ -8,21 +8,27 @@ mirrors the reference's distributions (dense: normal / sqrt(fan_in); norms
 1; biases 0) without being bit-identical.
 
 Products that the reference asks in fp32 (``preferred_element_type``) are
-taken on float32 copies of their inputs.  There is no mesh in this package
-yet, so the reference's sharding constraints, no-ops without one, are left
-out.  Its checkpoint name ``proj_out`` (the products by ``wo`` and
-``w_down``) has no torch counterpart: ``transformer.py``'s
-``save_proj_remat`` policy finds those products by their weights.
+taken on float32 copies of their inputs.  The reference's sharding
+constraints are ``sharding.constrain`` calls at the same places (no-ops
+without a mesh); under a mesh the hand kernels run through ``local_map``
+on each rank's shard (``_flash_attention``).  Its checkpoint name
+``proj_out`` (the products by ``wo`` and ``w_down``) has no torch
+counterpart: ``transformer.py``'s ``save_proj_remat`` policy finds those
+products by their weights.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.compat import pad
+from repro_torch.distributed.sharding import BATCH, MODEL, constrain
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
@@ -114,6 +120,17 @@ class Attention(nn.Module):
             self.bv = zeros((KV * hd,), dtype, device)
 
 
+def split_heads(t, n, hd, groups=None):
+    """[B, S, n * hd] -> [B, S, n, hd].  Under a mesh, a projection whose
+    ``model`` shards would cut a head, or for q a KV group (``groups``),
+    is replicated over ``model`` first: DTensor cannot unflatten such a
+    shard, where GSPMD would reshard it silently."""
+    if shd.is_dtensor(t) and (n if groups is None else groups) % \
+            shd.axis_size("model"):
+        t = constrain(t, (BATCH, None, None))
+    return t.reshape(t.shape[0], t.shape[1], n, hd)
+
+
 def blockwise_attention(q, k, v, *, causal, q_offset=0, q_block=512,
                         kv_block=1024, probs_dtype=torch.float32):
     """Memory-bounded attention: online softmax over kv blocks, looped over
@@ -129,10 +146,10 @@ def blockwise_attention(q, k, v, *, causal, q_offset=0, q_block=512,
     nk = math.ceil(Skv / kv_block)
     pq, pk = nq * q_block, nk * kv_block
     dev = q.device
-    qp = F.pad(q, (0, 0, 0, 0, 0, pq - Sq)).reshape(B, nq, q_block, KV, G,
+    qp = pad(q, (0, 0, 0, 0, 0, pq - Sq)).reshape(B, nq, q_block, KV, G,
                                                     hd)
-    kp = F.pad(k, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
-    vp = F.pad(v, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
+    kp = pad(k, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
+    vp = pad(v, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
     kv_valid = (torch.arange(pk, device=dev) < Skv).reshape(nk, kv_block)
 
     blocks = []
@@ -192,7 +209,7 @@ def _q_chunks(q, KV, q_block):
     split: [B, nq, q_block, KV, G, hd]."""
     B, Sq, H, hd = q.shape
     nq = math.ceil(Sq / q_block)
-    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
+    qp = pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
     return qp.reshape(B, nq, q_block, KV, H // KV, hd)
 
 
@@ -275,7 +292,7 @@ def _flashref_bwd(causal, q_block, q, k, v, o, lse, do):
     dop = _q_chunks(do, KV, qb_)
     op = _q_chunks(o, KV, qb_)
     nq = qp.shape[1]
-    lsep = F.pad(lse, (0, nq * qb_ - Sq)).reshape(B, KV, H // KV, nq, qb_)
+    lsep = pad(lse, (0, nq * qb_ - Sq)).reshape(B, KV, H // KV, nq, qb_)
     kf = k.to(acc)
     vf = v.to(acc)
     dk = torch.zeros((B, Skv, KV, hd), dtype=acc, device=q.device)
@@ -371,9 +388,11 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
     v = src @ p.wv
     if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, src.shape[1], KV, hd)
-    v = v.reshape(B, src.shape[1], KV, hd)
+    q = split_heads(q, H, hd, KV)
+    k = split_heads(k, KV, hd)
+    v = split_heads(v, KV, hd)
+    q = constrain(q, head_template(KV))
+    k = constrain(k, (BATCH, None, MODEL, None))
     if context is None and inv_freqs is not None:
         q = apply_rope(q, positions, inv_freqs)
         k = apply_rope(k, positions, inv_freqs)
@@ -387,8 +406,10 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
         cv_all[layer_index, :, cache_index:cache_index + S] = \
             v.to(cv_all.dtype)
         new_cache = (ck_all, cv_all)
-        o = _decode_attention(q, ck_all[layer_index], cv_all[layer_index],
-                              cache_index, pdt).to(x.dtype)
+        o = per_head(lambda q, k, v: _decode_attention(q, k, v, cache_index,
+                                                       pdt),
+                     q, ck_all[layer_index], cv_all[layer_index]).to(x.dtype)
+        o = constrain(o, (BATCH, None, MODEL, None))
     elif kv_cache is not None:
         ck, cv = kv_cache
         ck, cv = ck.clone(), cv.clone()
@@ -398,35 +419,80 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
         if S > 1:
             if cfg.attn_impl in ("qchunk", "flashref") and \
                     src.shape[1] <= 8192:
-                o = qchunk_attention(q, k, v, causal=True, probs_dtype=pdt)
+                attend = partial(qchunk_attention, causal=True,
+                                 probs_dtype=pdt)
             else:
-                o = blockwise_attention(q, k, v, causal=True,
-                                        probs_dtype=pdt)
+                attend = partial(blockwise_attention, causal=True,
+                                 probs_dtype=pdt)
+            o = per_head(attend, q, k, v)
         else:
             # decode: attend over the valid cache prefix only
-            o = _decode_attention(q, ck, cv, cache_index, pdt).to(x.dtype)
+            o = per_head(lambda q, k, v: _decode_attention(
+                q, k, v, cache_index, pdt), q, ck, cv).to(x.dtype)
     else:
+        masked = causal and context is None
         if cfg.attn_impl == "flash" and context is None:
-            o = fa_ops.flash_attention(q, k, v, causal=causal)
+            attend = partial(_flash_attention, causal=causal)
         elif S * src.shape[1] <= 256 * 256:
-            o = reference_attention(q, k, v,
-                                    causal=causal and context is None)
+            attend = partial(reference_attention, causal=masked)
         elif cfg.attn_impl == "qchunk":
-            o = qchunk_attention(q, k, v, causal=causal and context is None,
-                                 probs_dtype=pdt)
+            attend = partial(qchunk_attention, causal=masked,
+                             probs_dtype=pdt)
         elif cfg.attn_impl == "flashref":
-            o = flashref_attention(q, k, v, causal and context is None, 512,
-                                   pdt)
+            attend = partial(flashref_attention, causal=masked, q_block=512,
+                             probs_dtype=pdt)
         else:
-            o = blockwise_attention(q, k, v,
-                                    causal=causal and context is None,
-                                    probs_dtype=pdt)
+            attend = partial(blockwise_attention, causal=masked,
+                             probs_dtype=pdt)
+        o = per_head(attend, q, k, v)
         if return_kv:
             new_cache = (k, v)
+    o = constrain(o, (BATCH, None, MODEL, None))
     out = o.reshape(B, S, H * hd) @ p.wo
     if cfg.tp_bf16_reduce:
         out = out.to(torch.bfloat16)
     return out, new_cache
+
+
+def head_template(kv_heads: int):
+    """The template of a [B, S, heads, hd] q (or kernel operand) under the
+    mesh: batch over the batch axes, heads over ``model`` only when
+    ``kv_heads`` divides by it, so that each rank's q heads meet their own
+    KV group (GQA); otherwise heads replicated and the batch sharded
+    alone.  The reference shards q heads whenever H divides (ROADMAP
+    D-entry on the GQA rule)."""
+    heads = MODEL if kv_heads % shd.axis_size("model") == 0 else None
+    return (BATCH, None, heads, None)
+
+
+def per_head(attend, q, k, v):
+    """``attend(q, k, v)`` -> o [B, Sq, H, hd], an attention that mixes
+    nothing across batch rows or KV groups.  Under a mesh it runs through
+    ``local_map`` on each rank's shard of batch and heads
+    (``head_template``), so a hand kernel launches on local tensors
+    (DTensor has no sharding rule for a custom extension) and the plain
+    forms skip DTensor's per-op dispatch (torch 2.11 has no rule for
+    their einsums' merged views either).  Gradients stay per shard: a
+    replicated dimension's ranks compute the same values."""
+    mesh = shd.get_mesh()
+    if mesh is None or not shd.is_dtensor(q):
+        return attend(q, k, v)
+    tpl = head_template(k.shape[2])
+    pq = shd.fitted_sharding(q.shape, tpl).placements
+    pkv = shd.fitted_sharding(k.shape, tpl).placements
+    return shd.local_map(attend, out_placements=pq,
+                         in_placements=(pq, pkv, pkv),
+                         device_mesh=mesh)(q, k, v)
+
+
+def _flash_attention(q, k, v, causal):
+    """``fa_ops.flash_attention`` (K2, and K3/K4 through its
+    ``autograd.Function``).  A rank's shard (``per_head``) that is a
+    strided view is copied to dense rows first, so the kernels' 16-byte
+    rows and 8-element strides hold (``_mma_layout_error``); a whole
+    tensor is contiguous already and passes as it is."""
+    q, k, v = (t if t.is_contiguous() else t.contiguous() for t in (q, k, v))
+    return fa_ops.flash_attention(q, k, v, causal=causal)
 
 
 # ---------------------------------------------------------------------------
@@ -443,6 +509,7 @@ class MLP(nn.Module):
 
 def mlp_block(p, x, cfg=None):
     h = F.silu(x @ p.w_gate) * (x @ p.w_up)
+    h = constrain(h, (BATCH, None, MODEL))
     y = h @ p.w_down
     if cfg is not None and cfg.tp_bf16_reduce:
         y = y.to(torch.bfloat16)
@@ -497,6 +564,86 @@ def moe_route(p, cfg, xt, capacity_factor: float = 1.25) -> dict:
             "order": order, "keep": keep, "slot": slot}
 
 
+def _moe_dispatch_compute(xt, logits, wg, wu, wd, K, C, e_base):
+    """Sort-based dispatch and expert FFN of tokens ``xt`` [T, D] for the
+    experts [e_base, e_base + E_loc) whose weights ``wg``/``wu``/``wd``
+    [E_loc, ...] are given, each taking at most C tokens; a routed row of
+    another expert, or past its capacity, contributes nothing.  Returns
+    y [T, D], each token's rows summed in its own pick order (D36)."""
+    T, D = xt.shape
+    E_loc = wg.shape[0]
+    gates, idx = torch.topk(torch.softmax(logits, dim=-1), K, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    pos = torch.arange(T * K, device=xt.device) - torch.searchsorted(
+        sorted_e, sorted_e, side="left")
+    local_e = sorted_e - e_base
+    keep = (pos < C) & (local_e >= 0) & (local_e < E_loc)
+    slot = torch.where(keep, local_e * C + pos, E_loc * C)
+
+    buf = torch.zeros((E_loc * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf = buf.index_put((slot,), xt[order // K])
+    ex_in = buf[:-1].reshape(E_loc, C, D)
+    h = F.silu(torch.bmm(ex_in, wg)) * torch.bmm(ex_in, wu)
+    flat_out = torch.bmm(h, wd).reshape(E_loc * C, D)
+    routed = torch.where(keep[:, None],
+                         flat_out[torch.clamp(slot, 0, E_loc * C - 1)],
+                         torch.zeros((), dtype=xt.dtype, device=xt.device))
+    g = gates.reshape(-1)[order][:, None].to(xt.dtype)
+    picks = (routed * g)[torch.argsort(order)].reshape(T, K, D)
+    y = picks[:, 0]
+    for k in range(1, K):
+        y = y + picks[:, k]
+    return y
+
+
+def moe_local_dispatch(p, cfg, xt, logits, capacity_factor: float = 1.25):
+    """Expert-parallel dispatch under the mesh (the reference's
+    ``_moe_local_dispatch``, its ``moe_local`` optimisation).
+
+    Activations are replicated along the ``model`` axis, so every
+    expert-owner rank dispatches its own ``E / ep`` experts' tokens
+    locally, from ``e_base = rank_in_model * E_loc``, with the capacity of
+    its data shard, ``C = max(1, int(cf * K * T_loc / E))``; the only
+    communication is one all-reduce of the combined output over ``model``
+    (``sharding.psum``)."""
+    mesh = shd.get_mesh()
+    names = mesh.mesh_dim_names
+    model_dim = names.index("model")
+    E, K = cfg.moe_experts, cfg.moe_topk
+    ep = mesh.size(model_dim)
+    if E % ep:
+        raise ValueError(f"moe_local_dispatch: {E} experts do not divide "
+                         f"over a {ep}-way model axis")
+    E_loc = E // ep
+    rows = shd.resolve((BATCH, None))
+    dp = 1
+    for i, pl in enumerate(rows):
+        if pl != shd.Replicate():
+            dp *= mesh.size(i)
+    C = max(1, int(capacity_factor * K * (xt.shape[0] // dp) / E))
+    experts = shd.resolve((MODEL, None, None))
+    # gradients: a token's comes from every expert owner (summed over
+    # ``model``); an expert's from every data shard's tokens
+    rows_grad = tuple(shd.Partial() if i == model_dim else pl
+                      for i, pl in enumerate(rows))
+    experts_grad = tuple(shd.Partial() if pl == shd.Replicate() else pl
+                         for pl in experts)
+
+    def local(xt_l, logits_l, wg, wu, wd):
+        e_base = mesh.get_local_rank("model") * E_loc
+        y = _moe_dispatch_compute(xt_l, logits_l, wg, wu, wd, K, C, e_base)
+        return shd.psum(y, "model")
+    return shd.local_map(
+        local, out_placements=rows,
+        in_placements=(rows, rows, experts, experts, experts),
+        in_grad_placements=(rows_grad, rows_grad, experts_grad,
+                            experts_grad, experts_grad),
+        device_mesh=mesh)(xt, logits.float(), p.we_gate, p.we_up, p.we_down)
+
+
 def moe_block(p, cfg, x, capacity_factor: float = 1.25):
     """Sort-based top-k MoE dispatch with the fixed capacity
     ``C = max(1, int(capacity_factor * K * T / E))``; returns (y, aux).
@@ -504,9 +651,10 @@ def moe_block(p, cfg, x, capacity_factor: float = 1.25):
     The reference's global path (``moe_route``): tokens go to their top-k
     experts in (expert, token) order, each expert takes at most C of them
     and the overflow goes to a dump row that is discarded; the grouped
-    expert products are batched matmuls.  Its expert-parallel path
-    (``moe_local_dispatch``) needs a mesh, and without one the reference
-    takes this path too (ROADMAP A11).
+    expert products are batched matmuls.  With ``cfg.moe_local_dispatch``
+    under a mesh the dispatch runs expert-parallel
+    (``moe_local_dispatch``); without a mesh the reference takes this path
+    too.
 
     Nothing depends on values (no ``.item()``, masks or bincount), so a
     step captures over meta tensors.  The combine is deterministic: each
@@ -519,16 +667,26 @@ def moe_block(p, cfg, x, capacity_factor: float = 1.25):
     T = B * S
     xt = x.reshape(T, D)
     dev = x.device
+    if cfg.moe_local_dispatch and shd.get_mesh() is not None:
+        logits = xt.float() @ p.router
+        y = moe_local_dispatch(p, cfg, xt, logits, capacity_factor)
+        y = y.reshape(B, S, D)
+        if hasattr(p, "shared"):
+            y = y + mlp_block(p.shared, x)
+        top1 = torch.argmax(logits, dim=-1)
+        me = (top1[:, None] == torch.arange(E, device=dev)).float().mean(0)
+        pe = torch.softmax(logits, dim=-1).mean(0)
+        return y, E * torch.sum(me * pe)
     r = moe_route(p, cfg, xt, capacity_factor)
     C, order, keep, slot = r["capacity"], r["order"], r["keep"], r["slot"]
 
     src_tok = order // K
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
     buf = buf.index_put((slot,), xt[src_tok])   # duplicates: dump row only
-    ex_in = buf[:-1].reshape(E, C, D)
+    ex_in = constrain(buf[:-1].reshape(E, C, D), (MODEL, None, None))
 
     h = F.silu(torch.bmm(ex_in, p.we_gate)) * torch.bmm(ex_in, p.we_up)
-    ex_out = torch.bmm(h, p.we_down)                      # [E, C, D]
+    ex_out = constrain(torch.bmm(h, p.we_down), (MODEL, None, None))
 
     flat_out = ex_out.reshape(E * C, D)
     routed = torch.where(keep[:, None],

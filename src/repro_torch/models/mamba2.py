@@ -18,6 +18,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.compat import pad
+from repro_torch.distributed.sharding import BATCH, MODEL, constrain
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd
 from repro_torch.models import layers as L
@@ -65,8 +68,8 @@ def _split_proj(cfg, zxbcdt):
 def _causal_conv(xbc, w, b):
     """Depthwise causal conv over sequence. xbc: [B,S,C]; w: [K,C]."""
     K = w.shape[0]
-    pad = F.pad(xbc, (0, 0, K - 1, 0))
-    out = sum(pad[:, i:i + xbc.shape[1], :] * w[i] for i in range(K))
+    padded = pad(xbc, (0, 0, K - 1, 0))
+    out = sum(padded[:, i:i + xbc.shape[1], :] * w[i] for i in range(K))
     return F.silu(out + b)
 
 
@@ -81,7 +84,8 @@ def mamba_block(p, cfg: ArchConfig, u, ssm_state=None, conv_state=None):
     hp = cfg.ssm_head_dim
 
     un = L.apply_norm(cfg.norm, u, p.ln)
-    z, x, B, C, dt = _split_proj(cfg, un @ p.in_proj)
+    zxbcdt = constrain(un @ p.in_proj, (BATCH, None, MODEL))
+    z, x, B, C, dt = _split_proj(cfg, zxbcdt)
     xbc = torch.cat([x, B, C], dim=-1)
 
     new_conv = None
@@ -107,8 +111,7 @@ def mamba_block(p, cfg: ArchConfig, u, ssm_state=None, conv_state=None):
             D=p.D)
         y = y[:, None]
     elif cfg.attn_impl == "flash":          # the reference's "kernels on"
-        y = ssd_ops.ssd_scan(x, dt, A, B_ssm, C_ssm, D=p.D,
-                             chunk=cfg.ssm_chunk)
+        y = _ssd_scan(x, dt, A, B_ssm, C_ssm, p.D, cfg.ssm_chunk)
     else:
         y = ssd.ssd_chunked(x, dt, A, B_ssm, C_ssm, D=p.D,
                             chunk=cfg.ssm_chunk)
@@ -117,13 +120,45 @@ def mamba_block(p, cfg: ArchConfig, u, ssm_state=None, conv_state=None):
     return u + y @ p.out_proj, new_ssm, new_conv
 
 
+def _ssd_scan(x, dt, A, B, C, D, chunk):
+    """``ssd_ops.ssd_scan`` (K5); on DTensors under a mesh through
+    ``local_map``: batch over the batch axes and heads over ``model`` (A
+    and D with them; B and C, one group for all heads, whole on every
+    ``model`` rank), so each rank launches the kernel on its own shard.
+    Heads that do not divide over ``model`` stay whole."""
+    if shd.get_mesh() is None or not shd.is_dtensor(x):
+        return ssd_ops.ssd_scan(x, dt, A, B, C, D=D, chunk=chunk)
+    heads = shd.fitted_sharding(x.shape, (BATCH, None, MODEL, None))
+    px = heads.placements
+    pdt = shd.fitted_sharding(x.shape[:3], (BATCH, None, MODEL)).placements
+    ph = shd.fitted_sharding(A.shape, (MODEL,)).placements
+    pbc = shd.fitted_sharding(B.shape, (BATCH, None, None)).placements
+
+    def local(x, dt, A, B, C, D):
+        # a rank's shard of a strided view is copied to dense rows, which
+        # start on 16-byte boundaries (D17)
+        x, dt, B, C = (t if t.is_contiguous() else t.contiguous()
+                       for t in (x, dt, B, C))
+        return ssd_ops.ssd_scan(x, dt, A, B, C, D=D, chunk=chunk)
+    return shd.local_map(
+        local, out_placements=px,
+        in_placements=(px, pdt, ph, pbc, pbc, ph),
+        device_mesh=heads.mesh)(x, dt, A, B, C, D)
+
+
+SSM_CACHE_TEMPLATES = {"ssm": (None, BATCH, None, None, None),
+                       "conv": (None, BATCH, None, None)}
+
+
 def init_ssm_cache(cfg: ArchConfig, n_layers: int, batch: int, device):
     d_in, nh, n, conv_dim, _ = block_dims(cfg)
     return {
-        "ssm": torch.zeros((n_layers, batch, nh, cfg.ssm_head_dim, n),
-                           dtype=torch.float32, device=device),
-        "conv": torch.zeros((n_layers, batch, CONV_K - 1, conv_dim),
-                            dtype=torch.bfloat16, device=device),
+        "ssm": shd.place(torch.zeros(
+            (n_layers, batch, nh, cfg.ssm_head_dim, n), dtype=torch.float32,
+            device=device), SSM_CACHE_TEMPLATES["ssm"]),
+        "conv": shd.place(torch.zeros(
+            (n_layers, batch, CONV_K - 1, conv_dim), dtype=torch.bfloat16,
+            device=device), SSM_CACHE_TEMPLATES["conv"]),
     }
 
 
@@ -172,8 +207,8 @@ class MambaLM(nn.Module):
 
     def forward(self, tokens, cache=None):
         cfg = self.cfg
-        x, ssm_n, conv_n = run_blocks(self.layers, cfg, self.embed[tokens],
-                                      cache)
+        x = constrain(self.embed[tokens], (BATCH, None, None))
+        x, ssm_n, conv_n = run_blocks(self.layers, cfg, x, cache)
         new_cache = None if cache is None else {
             "ssm": torch.stack(ssm_n), "conv": torch.stack(conv_n)}
         return L.apply_norm(cfg.norm, x, self.ln_f), new_cache

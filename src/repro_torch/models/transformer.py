@@ -34,6 +34,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import BATCH, MODEL, constrain
 from repro_torch.models import layers as L
 
 
@@ -106,6 +108,7 @@ class TransformerLM(nn.Module):
                                      self.vision_proj.dtype)
             ve = extra_embeds.to(dt) @ self.vision_proj.to(dt)
             x = torch.cat([ve.to(x.dtype), x], dim=1)
+        x = constrain(x, (BATCH, None, None))
         S = x.shape[1]
         positions = torch.arange(S, device=tokens.device)
         if cache_index is not None:
@@ -208,8 +211,10 @@ def unembed_matrix(model, cfg):
 def chunked_ce_loss(model, cfg: ArchConfig, hidden, labels, mask=None):
     """Mean cross entropy over vocab, in ``loss_chunk``-token chunks (the
     last one the remainder).  hidden: [B, S, D]; labels: [B, S].  The label
-    logit is gathered (no tensor parallelism here to need the reference's
-    one-hot reduction); each chunk's logits are float32."""
+    logit is gathered; under a mesh, where the logits are split over the
+    vocab, it is recovered with the reference's one-hot reduction instead
+    (DTensor's gather on a sharded dim needs the whole row).  Each chunk's
+    logits are float32."""
     B, S, D = hidden.shape
     h = hidden.reshape(B * S, D)
     y = labels.reshape(B * S)
@@ -222,7 +227,12 @@ def chunked_ce_loss(model, cfg: ArchConfig, hidden, labels, mask=None):
     def chunk_loss(hc, yc, mc):
         logits = (hc @ W).float()
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(1, yc[:, None])[:, 0]
+        if shd.is_dtensor(logits):
+            onehot = yc[:, None] == torch.arange(logits.shape[1],
+                                                 device=yc.device)
+            gold = torch.sum(logits * onehot, dim=-1)
+        else:
+            gold = logits.gather(1, yc[:, None])[:, 0]
         return ((lse - gold) * mc).sum(), mc.sum()
 
     def run(hc, yc, mc):
@@ -265,12 +275,17 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
 
     def mk(n):
         shape = (n, batch, max_seq, cfg.kv_heads, cfg.hd)
-        return (torch.zeros(shape, dtype=dtype, device=device),
-                torch.zeros(shape, dtype=dtype, device=device))
+        return tuple(shd.place(torch.zeros(shape, dtype=dtype, device=device),
+                               kv_cache_template()) for _ in range(2))
     cache = {"main": mk(cfg.n_layers - n_dense)}
     if n_dense:
         cache["dense"] = mk(n_dense)
     return cache
+
+
+def kv_cache_template():
+    """Logical sharding for KV caches: batch over BATCH, heads over MODEL."""
+    return (None, BATCH, None, MODEL, None)
 
 
 @torch.no_grad()

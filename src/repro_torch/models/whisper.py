@@ -17,6 +17,7 @@ with ``causal=True``; cross-attention never does, as in the reference.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn as nn
@@ -24,7 +25,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import BATCH, constrain
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import kv_cache_template
 
 MAX_DECODER_POS = 32768  # sized for the decode_32k assigned shape
 
@@ -96,6 +100,7 @@ def encode(model: WhisperLM, frames):
     """frames: [B, enc_seq, D] stub embeddings -> encoder states."""
     cfg = model.cfg
     x = frames.to(getattr(torch, cfg.param_dtype)) + model.enc_pos
+    x = constrain(x, (BATCH, None, None))
     positions = torch.arange(x.shape[1], device=x.device)
     for p in model.enc_layers:
         if _remat(cfg):
@@ -110,28 +115,32 @@ def _cross_attend(p, cfg, x, ck, cv):
     """Cross-attention against precomputed (cached) encoder k/v."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-    q = (x @ p.wq).reshape(B, S, H, hd)
-    Se = ck.shape[1]
-    if S * Se > 256 * 256:
+    q = L.split_heads(x @ p.wq, H, hd, KV)
+    o = L.per_head(partial(_cross_scores, dtype=x.dtype), q, ck, cv)
+    return o.reshape(B, S, H * hd) @ p.wo
+
+
+def _cross_scores(q, ck, cv, dtype):
+    """[B, S, H, hd] attention of q over the whole encoder k/v."""
+    B, S, H, hd = q.shape
+    KV = ck.shape[2]
+    if S * ck.shape[1] > 256 * 256:
         # long prefill: memory-bounded blockwise path
-        o = L.blockwise_attention(q, ck.to(q.dtype), cv.to(q.dtype),
-                                  causal=False)
-        o = o.reshape(B, S, H * hd)
-    else:
-        qg = q.reshape(B, S, KV, H // KV, hd)
-        s = torch.einsum("bqkgh,bpkh->bkgqp", qg.float(),
-                         ck.float()) / math.sqrt(hd)
-        pr = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqp,bpkh->bkgqh", pr, cv.float())
-        o = o.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(x.dtype)
-    return o @ p.wo
+        return L.blockwise_attention(q, ck.to(q.dtype), cv.to(q.dtype),
+                                     causal=False)
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bpkh->bkgqp", qg.float(),
+                     ck.float()) / math.sqrt(hd)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqp,bpkh->bkgqh", pr, cv.float())
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(dtype)
 
 
 def cross_kv(p, cfg, enc_out):
     B, Se, _ = enc_out.shape
     KV, hd = cfg.kv_heads, cfg.hd
-    k = (enc_out @ p.wk).reshape(B, Se, KV, hd)
-    v = (enc_out @ p.wv).reshape(B, Se, KV, hd)
+    k = L.split_heads(enc_out @ p.wk, KV, hd)
+    v = L.split_heads(enc_out @ p.wv, KV, hd)
     return k, v
 
 
@@ -155,7 +164,7 @@ def decode(model: WhisperLM, tokens, enc_out, cache=None, cache_index=None):
     S = tokens.shape[1]
     x = F.embedding(tokens, model.embed)
     start = 0 if cache_index is None else cache_index
-    x = x + model.dec_pos[start:start + S]
+    x = constrain(x + model.dec_pos[start:start + S], (BATCH, None, None))
     positions = start + torch.arange(S, device=tokens.device)
 
     if cache is None:
@@ -200,8 +209,10 @@ def init_cache(model: WhisperLM, enc_out, batch: int, max_seq: int):
     cross = [cross_kv(p.cross, cfg, enc_out) for p in model.dec_layers]
     dev = enc_out.device
     return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+        "k": shd.place(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                       kv_cache_template()),
+        "v": shd.place(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                       kv_cache_template()),
         "cross_k": torch.stack([k for k, _ in cross]).to(torch.bfloat16),
         "cross_v": torch.stack([v for _, v in cross]).to(torch.bfloat16),
     }

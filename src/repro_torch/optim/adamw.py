@@ -49,10 +49,10 @@ class AdamW:
         device = next(iter(params.values())).device
         return {
             "step": torch.zeros((), dtype=torch.int64, device=device),
-            "m": {n: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for n, p in params.items()},
-            "v": {n: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for n, p in params.items()},
+            "m": {n: torch.zeros_like(p, dtype=torch.float32)
+                  for n, p in params.items()},
+            "v": {n: torch.zeros_like(p, dtype=torch.float32)
+                  for n, p in params.items()},
             "master": {n: p.detach().float().clone()
                        for n, p in params.items()},
         }

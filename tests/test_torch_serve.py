@@ -77,9 +77,14 @@ def test_cli_serves_the_smoke_config_on_the_cpu(capsys):
     assert ((gen >= 0) & (gen < 256)).all()
     out = capsys.readouterr().out
     assert "prefill:" in out and "decode:" in out
-    with pytest.raises(NotImplementedError, match="A11"):
-        serve.main(["--arch", "zamba2_2_7b", "--smoke", "--mesh", "host"],
-                   device="cpu")
+    # --mesh host on a world of one serves the same tokens and leaves no
+    # process group behind
+    import torch.distributed as dist
+    meshed = serve.main(["--arch", "zamba2_2_7b", "--smoke", "--batch", "2",
+                         "--prompt-len", "8", "--gen", "4", "--mesh", "host"],
+                        device="cpu")
+    assert not dist.is_initialized()
+    np.testing.assert_array_equal(meshed, gen)
 
 
 @pytest.fixture(scope="module")

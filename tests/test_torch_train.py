@@ -443,8 +443,23 @@ def test_train_main_runs_with_fault_and_writes_metrics(tmp_path, capsys):
     assert [m["step"] for m in log] == list(range(7)) + list(range(5, 12))
     assert json.loads((tmp_path / "metrics.json").read_text()) == log
     assert all(np.isfinite(m["loss"]) for m in log)
-    with pytest.raises(NotImplementedError, match="A11"):
-        main(["--smoke", "--mesh", "host"], device="cpu")
+    # --mesh host on a world of one: a (1, 1) mesh of DTensors gives the
+    # same losses, and the process group main made is gone afterwards
+    import torch.distributed as dist
+    argv = ["--arch", ARCH, "--smoke", "--steps", "3", "--batch", "2",
+            "--seq", "32", "--save-every", "100"]
+    plain = main(argv + ["--ckpt-dir", str(tmp_path / "none")],
+                 device="cpu")
+    meshed = main(argv + ["--ckpt-dir", str(tmp_path / "host"), "--mesh",
+                          "host"], device="cpu")
+    assert not dist.is_initialized()
+    for a, b in zip(plain, meshed, strict=True):
+        np.testing.assert_allclose(b["loss"], a["loss"], rtol=1e-6, atol=0)
+    for kind in ("single", "multi"):
+        with pytest.raises(RuntimeError, match="needs (256|512) processes"):
+            main(argv + ["--ckpt-dir", str(tmp_path / kind), "--mesh", kind],
+                 device="cpu")
+        assert not dist.is_initialized()
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
