@@ -19,8 +19,8 @@ Guarantees used by the fault-tolerance layer:
     device of its like-state leaf, and onto the mesh: by ``shardings``
     (a tree of ``sharding.Sharding`` mirroring the state) or, where that
     gives none, by the like-leaf's own placements when it is a DTensor.
-    Under a process group every rank gathers its DTensor leaves whole and
-    rank 0 alone writes.
+    Under a process group every rank gathers one DTensor leaf whole at a
+    time, rank 0 alone writes it, and all drop it before the next.
 bfloat16 leaves are stored as their int16 bit pattern (numpy has no
 bfloat16) and viewed back, so the round trip is exact.
 """
@@ -34,7 +34,7 @@ import shutil
 import numpy as np
 import torch
 
-from repro_torch.distributed.compat import distribute_local, full, is_dtensor
+from repro_torch.distributed.sharding import distribute_local, full, is_dtensor
 
 # numpy cannot hold these dtypes; store a same-width integer bit-view
 _BIT_VIEWS = {torch.bfloat16: torch.int16}
@@ -112,41 +112,39 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def save(self, step: int, tree) -> str:
         final = self._step_dir(step)
-        # every rank gathers (a collective); one rank writes
-        leaves = [(p, full(x.detach())) for p, x in flatten(tree)]
-        if not _writer():
-            _barrier()
-            return final
         tmp = final + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        for i, (_, leaf) in enumerate(leaves):
-            t = leaf
-            if t.dtype in _BIT_VIEWS:
-                t = t.view(_BIT_VIEWS[t.dtype])
-            path = os.path.join(tmp, f"leaf_{i:05d}.npy")
-            with open(path, "wb") as f:
-                np.save(f, t.cpu().numpy())
+        writer = _writer()
+        if writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        paths, dtypes, shapes = [], [], []
+        # one leaf at a time: every rank gathers it whole (a collective, in
+        # the same order on every rank), the writer stores it, all drop it
+        for i, (path, x) in enumerate(flatten(tree)):
+            paths.append(path)
+            dtypes.append(str(x.dtype).removeprefix("torch."))
+            shapes.append(list(x.shape))
+            t = full(x.detach())
+            if writer:
+                if t.dtype in _BIT_VIEWS:
+                    t = t.view(_BIT_VIEWS[t.dtype])
+                with open(os.path.join(tmp, f"leaf_{i:05d}.npy"), "wb") as f:
+                    np.save(f, t.cpu().numpy())
+                    f.flush()
+                    os.fsync(f.fileno())
+            del t
+        if writer:
+            meta = {"step": step, "n_leaves": len(paths), "paths": paths,
+                    "dtypes": dtypes, "shapes": shapes}
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(meta, f)
                 f.flush()
                 os.fsync(f.fileno())
-        meta = {
-            "step": step,
-            "n_leaves": len(leaves),
-            "paths": [p for p, _ in leaves],
-            "dtypes": [str(x.dtype).removeprefix("torch.")
-                       for _, x in leaves],
-            "shapes": [list(x.shape) for _, x in leaves],
-        }
-        mpath = os.path.join(tmp, "meta.json")
-        with open(mpath, "w") as f:
-            json.dump(meta, f)
-            f.flush()
-            os.fsync(f.fileno())
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-        self._gc()
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+            self._gc()
         _barrier()
         return final
 

@@ -1,11 +1,4 @@
-"""torch version shims for the distributed layer, and the mesh maker.
-
-DTensor moved from ``torch.distributed._tensor`` to
-``torch.distributed.tensor`` (public from torch 2.4), ``local_map`` grew
-``redistribute_inputs`` and ``distribute_tensor`` grew ``src_data_rank``
-over the releases this package runs on.  Every spot that touches one of
-those goes through this module, so the version split lives in one place,
-as the reference routes its jax shims through ``distributed/compat.py``.
+"""The mesh maker, the process group it may own, and one DTensor op.
 
 ``make_mesh`` builds a named ``DeviceMesh`` over the process group.  When
 no group exists and the world is one process, it makes one (gloo on the
@@ -13,52 +6,22 @@ CPU, NCCL on the card, over an in-process store) and records that it did,
 so the caller that asked can destroy it (``destroy_owned_group``).  It
 never makes a group for a world larger than one: there the launcher
 initialises it (``init_world``, from ``torchrun``'s environment).
+
+``pad`` zero-pads a DTensor where torch 2.11's own rule fails (D47).
 """
 
 from __future__ import annotations
 
-import inspect
 import os
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor
 
-try:
-    from torch.distributed.tensor import (DeviceMesh, DTensor, Partial,
-                                          Placement, Replicate, Shard,
-                                          distribute_tensor)
-    from torch.distributed.tensor.experimental import (implicit_replication,
-                                                       local_map as _local_map)
-except ImportError:  # pragma: no cover - torch < 2.4
-    from torch.distributed._tensor import (DeviceMesh, DTensor, Placement,
-                                           Replicate, Shard,
-                                           distribute_tensor)
-    from torch.distributed._tensor.experimental import (
-        implicit_replication, local_map as _local_map)
-    from torch.distributed._tensor.placement_types import \
-        _Partial as Partial
-from torch.distributed.device_mesh import init_device_mesh
-
-__all__ = ["DTensor", "DeviceMesh", "Partial", "Replicate", "Shard",
-           "distribute_tensor", "distribute_local", "implicit_replication",
-           "local_map", "make_mesh", "init_world", "destroy_owned_group",
-           "is_dtensor", "full", "pad"]
+__all__ = ["make_mesh", "init_world", "destroy_owned_group", "pad"]
 
 _OWNED = {"group": False}
-
-_LOCAL_MAP_REDISTRIBUTES = (
-    "redistribute_inputs" in inspect.signature(_local_map).parameters)
-_SRC_DATA_RANK = (
-    "src_data_rank" in inspect.signature(distribute_tensor).parameters)
-
-
-def is_dtensor(x) -> bool:
-    return isinstance(x, DTensor)
-
-
-def full(x):
-    """The whole tensor of a DTensor (a collective), or ``x`` itself."""
-    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def pad(x, pads):
@@ -82,43 +45,6 @@ def pad(x, pads):
             parts.insert(1 if before else 0, x)
             x = torch.cat(parts, dim=dim)
     return x
-
-
-def local_map(func, *, out_placements, in_placements, device_mesh,
-              in_grad_placements=None):
-    """``local_map`` that redistributes its DTensor inputs to
-    ``in_placements`` first.  Releases without ``redistribute_inputs``
-    get the inputs redistributed here, with the same result.  One
-    output's placements may be given as a tuple."""
-    if isinstance(out_placements, tuple) and all(
-            isinstance(p, Placement) for p in out_placements):
-        out_placements = list(out_placements)
-    if _LOCAL_MAP_REDISTRIBUTES:
-        return _local_map(func, out_placements=out_placements,
-                          in_placements=in_placements,
-                          in_grad_placements=in_grad_placements,
-                          device_mesh=device_mesh, redistribute_inputs=True)
-    mapped = _local_map(func, out_placements=out_placements,
-                        in_placements=in_placements,
-                        in_grad_placements=in_grad_placements,
-                        device_mesh=device_mesh)
-
-    def run(*args):
-        args = [a.redistribute(device_mesh, pl)
-                if isinstance(a, DTensor) and pl is not None else a
-                for a, pl in zip(args, in_placements)]
-        return mapped(*args)
-    return run
-
-
-def distribute_local(tensor, mesh, placements):
-    """``distribute_tensor`` of a tensor that every rank holds whole (the
-    same values): each rank keeps its own shard, nothing is sent.  Older
-    releases without ``src_data_rank`` scatter from rank 0 instead, which
-    gives the same shards."""
-    if _SRC_DATA_RANK:
-        return distribute_tensor(tensor, mesh, placements, src_data_rank=None)
-    return distribute_tensor(tensor, mesh, placements)
 
 
 def _backend(device_type: str) -> str:

@@ -19,7 +19,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
-from repro_torch.distributed.compat import full, is_dtensor
+from repro_torch.distributed.sharding import full, is_dtensor
 
 
 def _stage_params(leaf, stage: int):

@@ -24,14 +24,14 @@ between follow their DTensor sharding rules.
 from __future__ import annotations
 
 import contextlib
-
-import torch
 from typing import Any, NamedTuple, Optional
 
-from repro_torch.distributed.compat import (DeviceMesh, Partial,
-                                            Replicate, Shard,
-                                            implicit_replication, is_dtensor,
-                                            local_map)
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 
 BATCH = "BATCH"
 FSDP = "FSDP"
@@ -39,6 +39,21 @@ MODEL = "MODEL"
 SEQ = "SEQ"
 
 _STATE: dict = {"mesh": None, "multi_pod": False, "fsdp": True, "depth": 0}
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def full(x):
+    """The whole tensor of a DTensor (a collective), or ``x`` itself."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def distribute_local(tensor, mesh: DeviceMesh, placements):
+    """``distribute_tensor`` of a tensor that every rank holds whole (the
+    same values): each rank keeps its own shard, nothing is sent."""
+    return distribute_tensor(tensor, mesh, placements, src_data_rank=None)
 
 
 class Sharding(NamedTuple):
@@ -173,11 +188,32 @@ def constrain(x, template):
 def place(x, template):
     """A tensor that every rank holds whole, as a DTensor placed by
     ``template`` (divisibility rule); ``x`` itself without a mesh."""
-    from repro_torch.distributed.compat import distribute_local
     mesh = _STATE["mesh"]
     if mesh is None or is_dtensor(x):
         return x
     return distribute_local(x, mesh, _fitted(mesh, tuple(x.shape), template))
+
+
+def cache_template(ndim: int, shard_seq: bool = False) -> tuple:
+    """The logical template of a decode-cache leaf by its rank (the
+    reference's ``cache_specs_templates`` rule): a 5-D leaf (an [L, B, S,
+    KV, hd] attention cache) has its batch over BATCH and dim 3 over
+    MODEL, or with ``shard_seq`` (long-context decode) its dim 2 over SEQ
+    in place of the batch; a 4-D or 3-D leaf has its batch over BATCH.
+    The rule gives the 5-D SSM state the same; its constructor keeps the
+    state's dim 3 whole (``mamba2.SSM_STATE_TEMPLATE``)."""
+    if ndim == 5:
+        return ((None, None, SEQ, MODEL, None) if shard_seq
+                else (None, BATCH, None, MODEL, None))
+    if ndim in (3, 4):
+        return (None, BATCH) + (None,) * (ndim - 2)
+    return (None,) * ndim
+
+
+def place_cache(x):
+    """A decode-cache leaf that every rank holds whole (zeros), placed by
+    ``cache_template`` of its rank; ``x`` itself without a mesh."""
+    return place(x, cache_template(x.dim()))
 
 
 def _tree_map(fn, tree, *rest):

@@ -13,8 +13,7 @@ inter-chunk state carry), mathematically identical.
 from __future__ import annotations
 
 import torch
-
-from repro_torch.distributed.compat import pad as zero_pad
+import torch.nn.functional as F
 
 
 def ssd_sequential(x, dt, A, B, C, D=None):
@@ -43,10 +42,10 @@ def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 64):
     q = min(chunk, l)
     pad = (-l) % q
     if pad:
-        x = zero_pad(x, (0, 0, 0, 0, 0, pad))
-        dt = zero_pad(dt, (0, 0, 0, pad))
-        B = zero_pad(B, (0, 0, 0, pad))
-        C = zero_pad(C, (0, 0, 0, pad))
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
     nc = x.shape[1] // q
 
     xf = x.float().reshape(b, nc, q, h, p)

@@ -24,7 +24,7 @@ import torch
 from repro_torch.configs.base import ShapeCell, get_config
 from repro_torch.data import shard_batch
 from repro_torch.device import resolve_device
-from repro_torch.distributed.compat import full
+from repro_torch.distributed.sharding import full
 from repro_torch.launch.mesh import set_up_mesh, tear_down_mesh
 from repro_torch.models.api import ModelApi, build, shard_params
 

@@ -27,7 +27,7 @@ import torch.nn as nn
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.sharding import BATCH, MODEL, SEQ
+from repro_torch.distributed.sharding import BATCH
 from repro_torch.models.api import ModelApi, TensorSpec, batch_specs
 from repro_torch.optim import AdamW, compress_gradients, cosine_schedule
 
@@ -118,32 +118,21 @@ def _tree_map_with_path(fn, tree, path=()):
 def cache_specs_templates(cfg: ArchConfig, cache_shapes,
                           shard_seq: bool = False):
     """Logical templates for a decode cache tree (nested dicts and
-    tuples; leaves have ``.shape``), the reference's rule by rank.
+    tuples; leaves have ``.shape``), the reference's rule by rank
+    (``sharding.cache_template``, which the caches' constructors place
+    their leaves by too, all but the SSM state: ROADMAP D51).
 
     shard_seq: long-context decode (batch < data-axis size) shards the
     sequence dimension of attention caches instead of the batch (SP).
     """
-    def leaf_template(path, leaf):
-        name = "/".join(str(p) for p in path)
-        nd = len(leaf.shape)
-        if nd == 5:   # [L, B, S, KV, hd] attention cache
-            if shard_seq:
-                return (None, None, SEQ, MODEL, None)
-            return (None, BATCH, None, MODEL, None)
-        if "ssm" in name and nd == 5:
-            return (None, BATCH, None, None, None)
-        if nd == 4:   # [L, B, K-1, conv] or [L, B, nh, ...]
-            return (None, BATCH, None, None)
-        if nd == 3:
-            return (None, BATCH, None)
-        return tuple(None for _ in leaf.shape)
-
-    return _tree_map_with_path(leaf_template, cache_shapes)
+    return _tree_map_with_path(
+        lambda _, leaf: shd.cache_template(len(leaf.shape), shard_seq),
+        cache_shapes)
 
 
-def _cache_shapes(api: ModelApi, B: int, S: int):
-    """``TensorSpec`` tree of ``api``'s decode cache for batch B and
-    sequence S, built on the meta device.  The audio family's comes from
+def make_meta_cache(api: ModelApi, B: int, S: int):
+    """``api``'s decode cache for batch B and sequence S, built by its
+    family's constructor on the meta device.  The audio family's comes from
     its prefill's cache constructor over the encoder's meta output (the
     reference takes ``eval_shape`` of the whole prefill; the decoder pass
     it skips feeds nothing into the cache)."""
@@ -166,8 +155,14 @@ def _cache_shapes(api: ModelApi, B: int, S: int):
     else:
         from repro_torch.models import transformer as T
         cache = T.init_kv_cache(cfg, B, S, "meta")
+    return cache
+
+
+def _cache_shapes(api: ModelApi, B: int, S: int):
+    """``TensorSpec`` tree of ``make_meta_cache``."""
     return _tree_map_with_path(
-        lambda _, t: TensorSpec(tuple(t.shape), t.dtype), cache)
+        lambda _, t: TensorSpec(tuple(t.shape), t.dtype),
+        make_meta_cache(api, B, S))
 
 
 def decode_input_specs(api: ModelApi, shape: ShapeCell):

@@ -38,7 +38,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ShapeCell, get_config
 from repro_torch.data import SyntheticLMDataset, shard_batch
 from repro_torch.device import resolve_device
-from repro_torch.distributed import compat
+from repro_torch.distributed.sharding import full
 from repro_torch.launch.mesh import set_up_mesh, tear_down_mesh
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models.api import build, shard_params
@@ -116,7 +116,7 @@ def _train(args, device, attn_impl):
                             device)
         params, opt_state, m = train_step(state["params"], state["opt"],
                                           batch)
-        m = {k: float(compat.full(v)) for k, v in m.items()}
+        m = {k: float(full(v)) for k, v in m.items()}
         metrics_log.append({"step": step, **m})
         if step % 10 == 0:
             print(f"step {step:5d} loss={m['loss']:.4f} "

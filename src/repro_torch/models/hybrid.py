@@ -16,7 +16,6 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import BATCH, constrain
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
-from repro_torch.models.transformer import kv_cache_template
 
 
 def n_attn_apps(cfg: ArchConfig) -> int:
@@ -102,8 +101,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device):
     G = n_attn_apps(cfg)
     shape = (G, batch, max_seq, cfg.kv_heads, cfg.hd)
     for name in ("attn_k", "attn_v"):
-        c[name] = shd.place(torch.zeros(shape, dtype=torch.bfloat16,
-                                        device=device), kv_cache_template())
+        c[name] = shd.place_cache(torch.zeros(shape, dtype=torch.bfloat16,
+                                              device=device))
     return c
 
 

@@ -27,7 +27,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.compat import pad
 from repro_torch.distributed.sharding import BATCH, MODEL, constrain
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -146,10 +145,10 @@ def blockwise_attention(q, k, v, *, causal, q_offset=0, q_block=512,
     nk = math.ceil(Skv / kv_block)
     pq, pk = nq * q_block, nk * kv_block
     dev = q.device
-    qp = pad(q, (0, 0, 0, 0, 0, pq - Sq)).reshape(B, nq, q_block, KV, G,
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq - Sq)).reshape(B, nq, q_block, KV, G,
                                                     hd)
-    kp = pad(k, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
-    vp = pad(v, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk - Skv)).reshape(B, nk, kv_block, KV, hd)
     kv_valid = (torch.arange(pk, device=dev) < Skv).reshape(nk, kv_block)
 
     blocks = []
@@ -209,7 +208,7 @@ def _q_chunks(q, KV, q_block):
     split: [B, nq, q_block, KV, G, hd]."""
     B, Sq, H, hd = q.shape
     nq = math.ceil(Sq / q_block)
-    qp = pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
     return qp.reshape(B, nq, q_block, KV, H // KV, hd)
 
 
@@ -292,7 +291,7 @@ def _flashref_bwd(causal, q_block, q, k, v, o, lse, do):
     dop = _q_chunks(do, KV, qb_)
     op = _q_chunks(o, KV, qb_)
     nq = qp.shape[1]
-    lsep = pad(lse, (0, nq * qb_ - Sq)).reshape(B, KV, H // KV, nq, qb_)
+    lsep = F.pad(lse, (0, nq * qb_ - Sq)).reshape(B, KV, H // KV, nq, qb_)
     kf = k.to(acc)
     vf = v.to(acc)
     dk = torch.zeros((B, Skv, KV, hd), dtype=acc, device=q.device)
@@ -480,9 +479,9 @@ def per_head(attend, q, k, v):
     tpl = head_template(k.shape[2])
     pq = shd.fitted_sharding(q.shape, tpl).placements
     pkv = shd.fitted_sharding(k.shape, tpl).placements
-    return shd.local_map(attend, out_placements=pq,
-                         in_placements=(pq, pkv, pkv),
-                         device_mesh=mesh)(q, k, v)
+    return shd.local_map(attend, out_placements=list(pq),
+                         in_placements=(pq, pkv, pkv), device_mesh=mesh,
+                         redistribute_inputs=True)(q, k, v)
 
 
 def _flash_attention(q, k, v, causal):
@@ -540,58 +539,63 @@ def moe_capacity(cfg, T: int, capacity_factor: float = 1.25) -> int:
     return max(1, int(capacity_factor * cfg.moe_topk * T / cfg.moe_experts))
 
 
-def moe_route(p, cfg, xt, capacity_factor: float = 1.25) -> dict:
-    """The router's decisions for tokens ``xt`` [T, D]: the float32
-    softmax ``probs`` [T, E], the top-k ``gates`` (renormalized) and picks
-    ``idx`` [T, K]; then the dispatch of the T*K routed rows in stable
-    (expert, token) ``order``: ``keep`` (within the expert's capacity C)
-    and ``slot`` (expert * C + rank, or E * C, the dump row)."""
-    E, K = cfg.moe_experts, cfg.moe_topk
-    T = xt.shape[0]
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)
+def _route(probs, K: int, C: int, e_base: int, E_loc: int) -> dict:
+    """The dispatch of tokens with router probabilities ``probs`` [T, E]
+    to the experts [e_base, e_base + E_loc), each taking at most C: the
+    top-k ``gates`` (renormalized) and picks ``idx`` [T, K]; the T*K
+    routed rows in stable (expert, token) ``order``; ``keep`` (an expert
+    of the range, within its capacity) and ``slot`` (local expert * C +
+    rank, or E_loc * C, the dump row).  With e_base = 0 and E_loc = E
+    every expert is in range: the global path."""
+    T = probs.shape[0]
     gates, idx = torch.topk(probs, K, dim=-1)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    C = moe_capacity(cfg, T, capacity_factor)
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     # rank of each routed token within its expert
-    pos = torch.arange(T * K, device=xt.device) - torch.searchsorted(
-        sorted_e, sorted_e, side="left")
-    keep = pos < C
-    slot = torch.where(keep, sorted_e * C + pos, E * C)
-    return {"probs": probs, "gates": gates, "idx": idx, "capacity": C,
-            "order": order, "keep": keep, "slot": slot}
-
-
-def _moe_dispatch_compute(xt, logits, wg, wu, wd, K, C, e_base):
-    """Sort-based dispatch and expert FFN of tokens ``xt`` [T, D] for the
-    experts [e_base, e_base + E_loc) whose weights ``wg``/``wu``/``wd``
-    [E_loc, ...] are given, each taking at most C tokens; a routed row of
-    another expert, or past its capacity, contributes nothing.  Returns
-    y [T, D], each token's rows summed in its own pick order (D36)."""
-    T, D = xt.shape
-    E_loc = wg.shape[0]
-    gates, idx = torch.topk(torch.softmax(logits, dim=-1), K, dim=-1)
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    flat_e = idx.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    pos = torch.arange(T * K, device=xt.device) - torch.searchsorted(
+    pos = torch.arange(T * K, device=probs.device) - torch.searchsorted(
         sorted_e, sorted_e, side="left")
     local_e = sorted_e - e_base
     keep = (pos < C) & (local_e >= 0) & (local_e < E_loc)
     slot = torch.where(keep, local_e * C + pos, E_loc * C)
+    return {"probs": probs, "gates": gates, "idx": idx, "capacity": C,
+            "order": order, "keep": keep, "slot": slot}
 
+
+def moe_route(p, cfg, xt, capacity_factor: float = 1.25) -> dict:
+    """The global path's routing of tokens ``xt`` [T, D] (``_route`` over
+    all E experts): the float32 softmax ``probs`` of the router logits,
+    gates, picks, order, keep and slot, with the capacity
+    ``moe_capacity``."""
+    probs = torch.softmax(xt.float() @ p.router, dim=-1)
+    return _route(probs, cfg.moe_topk,
+                  moe_capacity(cfg, xt.shape[0], capacity_factor), 0,
+                  cfg.moe_experts)
+
+
+def _moe_dispatch_compute(xt, probs, wg, wu, wd, K, C, e_base):
+    """Sort-based dispatch and expert FFN of tokens ``xt`` [T, D] for the
+    experts [e_base, e_base + E_loc) whose weights ``wg``/``wu``/``wd``
+    [E_loc, ...] are given (``_route``); a routed row of another expert,
+    or past its capacity, goes to the dump row and contributes nothing.
+    Returns y [T, D], each token's rows summed in its own pick order
+    (D36)."""
+    T, D = xt.shape
+    E_loc = wg.shape[0]
+    r = _route(probs, K, C, e_base, E_loc)
+    order, keep, slot = r["order"], r["keep"], r["slot"]
     buf = torch.zeros((E_loc * C + 1, D), dtype=xt.dtype, device=xt.device)
-    buf = buf.index_put((slot,), xt[order // K])
-    ex_in = buf[:-1].reshape(E_loc, C, D)
+    buf = buf.index_put((slot,), xt[order // K])   # duplicates: dump row only
+    ex_in = constrain(buf[:-1].reshape(E_loc, C, D), (MODEL, None, None))
     h = F.silu(torch.bmm(ex_in, wg)) * torch.bmm(ex_in, wu)
-    flat_out = torch.bmm(h, wd).reshape(E_loc * C, D)
+    ex_out = constrain(torch.bmm(h, wd), (MODEL, None, None))
+    flat_out = ex_out.reshape(E_loc * C, D)
     routed = torch.where(keep[:, None],
                          flat_out[torch.clamp(slot, 0, E_loc * C - 1)],
                          torch.zeros((), dtype=xt.dtype, device=xt.device))
-    g = gates.reshape(-1)[order][:, None].to(xt.dtype)
+    g = r["gates"].reshape(-1)[order][:, None].to(xt.dtype)
+    # back to (token, pick) order, then a fixed-order sum over the picks
     picks = (routed * g)[torch.argsort(order)].reshape(T, K, D)
     y = picks[:, 0]
     for k in range(1, K):
@@ -599,7 +603,7 @@ def _moe_dispatch_compute(xt, logits, wg, wu, wd, K, C, e_base):
     return y
 
 
-def moe_local_dispatch(p, cfg, xt, logits, capacity_factor: float = 1.25):
+def moe_local_dispatch(p, cfg, xt, probs, capacity_factor: float = 1.25):
     """Expert-parallel dispatch under the mesh (the reference's
     ``_moe_local_dispatch``, its ``moe_local`` optimisation).
 
@@ -632,16 +636,17 @@ def moe_local_dispatch(p, cfg, xt, logits, capacity_factor: float = 1.25):
     experts_grad = tuple(shd.Partial() if pl == shd.Replicate() else pl
                          for pl in experts)
 
-    def local(xt_l, logits_l, wg, wu, wd):
+    def local(xt_l, probs_l, wg, wu, wd):
         e_base = mesh.get_local_rank("model") * E_loc
-        y = _moe_dispatch_compute(xt_l, logits_l, wg, wu, wd, K, C, e_base)
+        y = _moe_dispatch_compute(xt_l, probs_l, wg, wu, wd, K, C, e_base)
         return shd.psum(y, "model")
     return shd.local_map(
-        local, out_placements=rows,
+        local, out_placements=list(rows),
         in_placements=(rows, rows, experts, experts, experts),
         in_grad_placements=(rows_grad, rows_grad, experts_grad,
                             experts_grad, experts_grad),
-        device_mesh=mesh)(xt, logits.float(), p.we_gate, p.we_up, p.we_down)
+        device_mesh=mesh, redistribute_inputs=True)(
+            xt, probs, p.we_gate, p.we_up, p.we_down)
 
 
 def moe_block(p, cfg, x, capacity_factor: float = 1.25):
@@ -652,59 +657,32 @@ def moe_block(p, cfg, x, capacity_factor: float = 1.25):
     experts in (expert, token) order, each expert takes at most C of them
     and the overflow goes to a dump row that is discarded; the grouped
     expert products are batched matmuls.  With ``cfg.moe_local_dispatch``
-    under a mesh the dispatch runs expert-parallel
-    (``moe_local_dispatch``); without a mesh the reference takes this path
-    too.
+    under a mesh the same dispatch runs expert-parallel
+    (``moe_local_dispatch``); without a mesh the reference takes the
+    global path too.
 
     Nothing depends on values (no ``.item()``, masks or bincount), so a
     step captures over meta tensors.  The combine is deterministic: each
     token gathers its K routed rows in its own pick order and sums them
     k = 0, 1, ..., K-1 (ROADMAP D36); the reference scatter-adds them in
     (expert, token) order.  The aux loss is Switch's, E * sum(me * pe),
-    with me counted by ``scatter_add_`` in place of a one-hot."""
+    on both paths: me the one-hot mean of each token's top-1 pick, pe the
+    mean router probability."""
     B, S, D = x.shape
     E, K = cfg.moe_experts, cfg.moe_topk
     T = B * S
     xt = x.reshape(T, D)
-    dev = x.device
+    probs = torch.softmax(xt.float() @ p.router, dim=-1)
     if cfg.moe_local_dispatch and shd.get_mesh() is not None:
-        logits = xt.float() @ p.router
-        y = moe_local_dispatch(p, cfg, xt, logits, capacity_factor)
-        y = y.reshape(B, S, D)
-        if hasattr(p, "shared"):
-            y = y + mlp_block(p.shared, x)
-        top1 = torch.argmax(logits, dim=-1)
-        me = (top1[:, None] == torch.arange(E, device=dev)).float().mean(0)
-        pe = torch.softmax(logits, dim=-1).mean(0)
-        return y, E * torch.sum(me * pe)
-    r = moe_route(p, cfg, xt, capacity_factor)
-    C, order, keep, slot = r["capacity"], r["order"], r["keep"], r["slot"]
-
-    src_tok = order // K
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
-    buf = buf.index_put((slot,), xt[src_tok])   # duplicates: dump row only
-    ex_in = constrain(buf[:-1].reshape(E, C, D), (MODEL, None, None))
-
-    h = F.silu(torch.bmm(ex_in, p.we_gate)) * torch.bmm(ex_in, p.we_up)
-    ex_out = constrain(torch.bmm(h, p.we_down), (MODEL, None, None))
-
-    flat_out = ex_out.reshape(E * C, D)
-    routed = torch.where(keep[:, None],
-                         flat_out[torch.clamp(slot, 0, E * C - 1)],
-                         torch.zeros((), dtype=x.dtype, device=dev))
-    g = r["gates"].reshape(-1)[order][:, None].to(x.dtype)
-    # back to (token, pick) order, then a fixed-order sum over the picks
-    picks = (routed * g)[torch.argsort(order)].reshape(T, K, D)
-    y = picks[:, 0]
-    for k in range(1, K):
-        y = y + picks[:, k]
+        y = moe_local_dispatch(p, cfg, xt, probs, capacity_factor)
+    else:
+        y = _moe_dispatch_compute(xt, probs, p.we_gate, p.we_up, p.we_down,
+                                  K, moe_capacity(cfg, T, capacity_factor),
+                                  0)
     y = y.reshape(B, S, D)
-
     if hasattr(p, "shared"):
         y = y + mlp_block(p.shared, x)
     # load-balancing auxiliary loss (Switch-style)
-    me = torch.zeros(E, device=dev).scatter_add_(
-        0, r["idx"][:, 0], torch.ones(T, device=dev)) / T
-    pe = r["probs"].mean(0)
-    aux = E * torch.sum(me * pe)
-    return y, aux
+    top1 = torch.argmax(probs, dim=-1)
+    me = (top1[:, None] == torch.arange(E, device=x.device)).float().mean(0)
+    return y, E * torch.sum(me * probs.mean(0))

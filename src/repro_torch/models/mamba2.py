@@ -110,44 +110,55 @@ def mamba_block(p, cfg: ArchConfig, u, ssm_state=None, conv_state=None):
             ssm_state, x[:, 0], dt[:, 0], A, B_ssm[:, 0], C_ssm[:, 0],
             D=p.D)
         y = y[:, None]
-    elif cfg.attn_impl == "flash":          # the reference's "kernels on"
-        y = _ssd_scan(x, dt, A, B_ssm, C_ssm, p.D, cfg.ssm_chunk)
     else:
-        y = ssd.ssd_chunked(x, dt, A, B_ssm, C_ssm, D=p.D,
-                            chunk=cfg.ssm_chunk)
+        # "flash" is the reference's "kernels on": K5, which has no backward
+        scan = (ssd_ops.ssd_scan if cfg.attn_impl == "flash"
+                else ssd.ssd_chunked)
+        y = _per_head_scan(scan, x, dt, A, B_ssm, C_ssm, p.D, cfg.ssm_chunk)
     y = y.reshape(Bsz, S, d_in)
     y = L.rmsnorm(y * F.silu(z), p.norm_g)
     return u + y @ p.out_proj, new_ssm, new_conv
 
 
-def _ssd_scan(x, dt, A, B, C, D, chunk):
-    """``ssd_ops.ssd_scan`` (K5); on DTensors under a mesh through
+def _per_head_scan(scan, x, dt, A, B, C, D, chunk):
+    """``scan(x, dt, A, B, C, D=D, chunk=chunk)``: K5 (``ssd_ops.ssd_scan``)
+    or its chunked plain form.  On DTensors under a mesh it runs through
     ``local_map``: batch over the batch axes and heads over ``model`` (A
     and D with them; B and C, one group for all heads, whole on every
-    ``model`` rank), so each rank launches the kernel on its own shard.
-    Heads that do not divide over ``model`` stay whole."""
+    ``model`` rank), so each rank scans its own shard and K5 launches on
+    local tensors.  Heads that do not divide over ``model`` stay whole.
+    An input held whole over a mesh dim that splits x gets its gradient
+    as a ``Partial`` sum there (A and D over the batch axes; B and C over
+    ``model``)."""
     if shd.get_mesh() is None or not shd.is_dtensor(x):
-        return ssd_ops.ssd_scan(x, dt, A, B, C, D=D, chunk=chunk)
+        return scan(x, dt, A, B, C, D=D, chunk=chunk)
     heads = shd.fitted_sharding(x.shape, (BATCH, None, MODEL, None))
     px = heads.placements
     pdt = shd.fitted_sharding(x.shape[:3], (BATCH, None, MODEL)).placements
     ph = shd.fitted_sharding(A.shape, (MODEL,)).placements
     pbc = shd.fitted_sharding(B.shape, (BATCH, None, None)).placements
+    placements = (px, pdt, ph, pbc, pbc, ph)
+    grads = tuple(
+        tuple(shd.Partial() if q == shd.Replicate() and r != shd.Replicate()
+              else q for q, r in zip(pl, px)) for pl in placements)
 
     def local(x, dt, A, B, C, D):
         # a rank's shard of a strided view is copied to dense rows, which
         # start on 16-byte boundaries (D17)
         x, dt, B, C = (t if t.is_contiguous() else t.contiguous()
                        for t in (x, dt, B, C))
-        return ssd_ops.ssd_scan(x, dt, A, B, C, D=D, chunk=chunk)
+        return scan(x, dt, A, B, C, D=D, chunk=chunk)
     return shd.local_map(
-        local, out_placements=px,
-        in_placements=(px, pdt, ph, pbc, pbc, ph),
-        device_mesh=heads.mesh)(x, dt, A, B, C, D)
+        local, out_placements=list(px), in_placements=placements,
+        in_grad_placements=grads, device_mesh=heads.mesh,
+        redistribute_inputs=True)(x, dt, A, B, C, D)
 
 
-SSM_CACHE_TEMPLATES = {"ssm": (None, BATCH, None, None, None),
-                       "conv": (None, BATCH, None, None)}
+# The SSM state [L, B, nh, hp, n] is split by batch only.  The decode
+# specs' rule by rank (``sharding.cache_template``) would also split its hp
+# dim over ``model``, which torch 2.11's sharding rule for the decode
+# step's einsum rejects (ROADMAP D51); the conv window follows the rule.
+SSM_STATE_TEMPLATE = (None, BATCH, None, None, None)
 
 
 def init_ssm_cache(cfg: ArchConfig, n_layers: int, batch: int, device):
@@ -155,10 +166,10 @@ def init_ssm_cache(cfg: ArchConfig, n_layers: int, batch: int, device):
     return {
         "ssm": shd.place(torch.zeros(
             (n_layers, batch, nh, cfg.ssm_head_dim, n), dtype=torch.float32,
-            device=device), SSM_CACHE_TEMPLATES["ssm"]),
-        "conv": shd.place(torch.zeros(
+            device=device), SSM_STATE_TEMPLATE),
+        "conv": shd.place_cache(torch.zeros(
             (n_layers, batch, CONV_K - 1, conv_dim), dtype=torch.bfloat16,
-            device=device), SSM_CACHE_TEMPLATES["conv"]),
+            device=device)),
     }
 
 

@@ -35,7 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.sharding import BATCH, MODEL, constrain
+from repro_torch.distributed.sharding import BATCH, constrain
 from repro_torch.models import layers as L
 
 
@@ -275,17 +275,13 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, device,
 
     def mk(n):
         shape = (n, batch, max_seq, cfg.kv_heads, cfg.hd)
-        return tuple(shd.place(torch.zeros(shape, dtype=dtype, device=device),
-                               kv_cache_template()) for _ in range(2))
+        return tuple(shd.place_cache(torch.zeros(shape, dtype=dtype,
+                                                 device=device))
+                     for _ in range(2))
     cache = {"main": mk(cfg.n_layers - n_dense)}
     if n_dense:
         cache["dense"] = mk(n_dense)
     return cache
-
-
-def kv_cache_template():
-    """Logical sharding for KV caches: batch over BATCH, heads over MODEL."""
-    return (None, BATCH, None, MODEL, None)
 
 
 @torch.no_grad()

@@ -28,7 +28,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import BATCH, constrain
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import kv_cache_template
 
 MAX_DECODER_POS = 32768  # sized for the decode_32k assigned shape
 
@@ -209,10 +208,10 @@ def init_cache(model: WhisperLM, enc_out, batch: int, max_seq: int):
     cross = [cross_kv(p.cross, cfg, enc_out) for p in model.dec_layers]
     dev = enc_out.device
     return {
-        "k": shd.place(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                       kv_cache_template()),
-        "v": shd.place(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                       kv_cache_template()),
+        "k": shd.place_cache(torch.zeros(shape, dtype=torch.bfloat16,
+                                         device=dev)),
+        "v": shd.place_cache(torch.zeros(shape, dtype=torch.bfloat16,
+                                         device=dev)),
         "cross_k": torch.stack([k for k, _ in cross]).to(torch.bfloat16),
         "cross_v": torch.stack([v for _, v in cross]).to(torch.bfloat16),
     }

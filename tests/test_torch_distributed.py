@@ -26,6 +26,9 @@ a session of their own, killed whole on expiry.  The tests compare:
   sharded by their templates;
 - checkpoint restore onto the mesh (placements as templated, values
   bit-equal);
+- serving of Mamba-2 and Zamba2 (smoke, float32) on the (2, 2) mesh:
+  the caches placed as made, the tokens equal and the
+  prefill logits within 1e-5 of the same port without a mesh;
 - the data stream keyed by node, not rank: every rank of one host builds
   the reference's global batch.
 """
@@ -217,6 +220,21 @@ def test_sharded_train_step_matches_reference(runs, arch):
                                    err_msg=key)
         n += 1
     assert n >= 10
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "zamba2_2_7b"])
+def test_ssm_serving_on_the_mesh_gives_the_unsharded_tokens(runs, arch):
+    """Prefill and seven greedy decode steps on the (2, 2) mesh, caches
+    placed as their constructors make them (the decode specs' rule, the
+    SSM state by batch only), against the same port without a mesh
+    (float32)."""
+    _, port, _ = runs
+    assert port[f"{arch}/cache_placed"] == 1
+    np.testing.assert_array_equal(port[f"{arch}/serve_tokens"],
+                                  port[f"{arch}/serve_tokens_whole"])
+    np.testing.assert_allclose(port[f"{arch}/serve_logits"],
+                               port[f"{arch}/serve_logits_whole"],
+                               atol=1e-5, rtol=0)
 
 
 def test_checkpoint_restores_onto_the_mesh(runs):

@@ -12,6 +12,7 @@ import jax
 import pytest
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
 from repro.configs.base import ARCH_IDS, ShapeCell
 from repro.configs.base import get_config as jax_config
@@ -23,9 +24,10 @@ from repro.runtime.elastic import choose_mesh_shape as jax_choose
 from repro_torch.configs.base import get_config
 from repro_torch.convert import STACKED
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.compat import Replicate, Shard
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.steps import decode_input_specs
+from repro_torch.launch.steps import (cache_specs_templates,
+                                      decode_input_specs, make_meta_cache)
+from repro_torch.models import mamba2
 from repro_torch.models.api import batch_shardings, build, param_templates
 from repro_torch.runtime import choose_mesh_shape
 
@@ -196,6 +198,39 @@ def test_decode_input_specs_and_cache_templates_equal_reference(arch, batch):
     assert (pt.shape, pi.shape) == (jt.shape, ji.shape)
     assert (pt.dtype, pi.dtype) == (torch.int64, torch.int64)
     assert (ptt, pit) == (jtt, jit)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_caches_are_placed_by_the_decode_specs_templates(arch, monkeypatch):
+    """One rule for a cache's sharding: every leaf a family's cache
+    constructor places gets the template ``cache_specs_templates`` gives
+    it, but the SSM state, which the constructor splits by batch only
+    (``mamba2.SSM_STATE_TEMPLATE``, ROADMAP D51) where the reference's
+    rule by rank also splits its dim 3 over MODEL.  Whisper's cross k/v
+    are projections of the encoder output and take its placements; the
+    specs' sequence sharding for a batch of one (``shard_seq``) is for a
+    dry-run's inputs, which no constructor makes."""
+    placed = {}
+    real = shd.place
+
+    def record(x, template):
+        placed[id(x)] = template
+        return real(x, template)
+    monkeypatch.setattr(shd, "place", record)
+    api = build(get_config(arch, smoke=True), device="meta")
+    cache = make_meta_cache(api, 2, 48)
+    want = _flat_templates(cache_specs_templates(api.cfg, cache))
+    leaves = _flat(cache)
+    assert set(want) == set(leaves)
+    unplaced = {k[-1] for k, v in leaves.items() if id(v) not in placed}
+    assert unplaced == ({"cross_k", "cross_v"} if arch == "whisper_small"
+                        else set())
+    for k, v in leaves.items():
+        if k[-1] == "ssm":
+            assert want[k] == (None, "BATCH", None, "MODEL", None)
+            assert placed[id(v)] == mamba2.SSM_STATE_TEMPLATE
+        elif id(v) in placed:
+            assert placed[id(v)] == want[k], k
 
 
 @pytest.mark.parametrize("multi_pod", [False, True])

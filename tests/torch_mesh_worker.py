@@ -5,7 +5,9 @@
 spawns four CPU ranks (gloo, rendezvous through a ``FileStore`` in
 OUT_DIR, one thread each) that read the reference's inputs and parameters
 from ``OUT_DIR/ref.npz`` and write what they compute to
-``OUT_DIR/port.npz`` (rank 0) and ``OUT_DIR/data_<rank>.npz``.  Imports
+``OUT_DIR/port.npz`` (rank 0) and ``OUT_DIR/data_<rank>.npz``; the
+SSM families' serving on the mesh is held against their serving without
+it, both computed here.  Imports
 torch and the port only.  Every rank destroys its process group before it
 exits.
 """
@@ -22,6 +24,7 @@ import torch.multiprocessing as mp
 
 WORLD = 4
 ARCHS = ("tinyllama_1_1b", "mamba2_130m", "phi3_5_moe")
+SERVE_ARCHS = ("mamba2_130m", "zamba2_2_7b")
 TRAIN_SHAPE = (32, 4)           # seq, global batch
 
 
@@ -112,7 +115,7 @@ def _train(ref, out, mesh, ckpt_dir):
     from repro_torch.convert import load_reference_params
     from repro_torch.data import SyntheticLMDataset, shard_batch
     from repro_torch.distributed import sharding as shd
-    from repro_torch.distributed.compat import full
+    from repro_torch.distributed.sharding import full
     from repro_torch.launch.steps import make_optimizer, make_train_step
     from repro_torch.models.api import build, shard_params
     shape = ShapeCell("t", "train", *TRAIN_SHAPE)
@@ -154,7 +157,7 @@ def _checkpoint(params, templates, out, ckpt_dir):
     own placements."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.distributed import sharding as shd
-    from repro_torch.distributed.compat import full
+    from repro_torch.distributed.sharding import full
     ck = CheckpointManager(ckpt_dir)
     ck.save(1, {"params": params})
     whole = {n: full(p).detach().clone() for n, p in params.items()}
@@ -169,6 +172,48 @@ def _checkpoint(params, templates, out, ckpt_dir):
             ok &= tuple(r.placements) == tuple(p.placements)
             ok &= bool(torch.equal(full(r), whole[n]))
     out["ckpt_ok"] = np.int64(ok)
+
+
+@torch.no_grad()
+def _serve(out, mesh):
+    """Prefill and greedy decode of the SSM families' smoke configs
+    (float32) on the mesh and without it; the caches' placements as their
+    constructors make them."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import shard_batch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import hybrid, mamba2
+    from repro_torch.models.api import build, shard_params
+    shape = ShapeCell("s", "prefill", 24, 4)
+    for arch in SERVE_ARCHS:
+        cfg = _cfg(arch)
+        api = build(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+        batch = api.make_batch(torch.Generator().manual_seed(1), shape)
+        whole = generate(api, batch, 16, 8)
+        shd.set_mesh(mesh)
+        try:
+            shard_params(api)
+            sharded = shard_batch(batch, api.batch_shardings(shape), "cpu")
+            with shd.context():
+                got = generate(api, sharded, 16, 8)
+                cache = (hybrid.init_cache(cfg, 4, 24, "cpu")
+                         if cfg.family == "hybrid" else
+                         mamba2.init_ssm_cache(cfg, cfg.n_layers, 4, "cpu"))
+            placed = all(
+                tuple(v.placements) == shd.fitted_sharding(
+                    v.shape, mamba2.SSM_STATE_TEMPLATE if k == "ssm"
+                    else shd.cache_template(v.dim())).placements
+                for k, v in cache.items())
+        finally:
+            shd.set_mesh(None)
+        out[f"{arch}/serve_tokens"] = got.tokens.numpy()
+        out[f"{arch}/serve_tokens_whole"] = whole.tokens.numpy()
+        out[f"{arch}/serve_logits"] = got.prefill_logits.float().numpy()
+        out[f"{arch}/serve_logits_whole"] = \
+            whole.prefill_logits.float().numpy()
+        out[f"{arch}/cache_placed"] = np.int64(placed)
 
 
 def _rank(rank, out_dir):
@@ -186,6 +231,7 @@ def _rank(rank, out_dir):
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
         _moe(rank, ref, out, mesh)
         _train(ref, out, mesh, os.path.join(out_dir, "ckpt"))
+        _serve(out, mesh)
         if rank == 0:
             np.savez(os.path.join(out_dir, "port.npz"), **out)
     finally:
