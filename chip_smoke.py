@@ -93,7 +93,16 @@ version on the card, and drives the port's two paths:
   DTensors, K2-K5 through ``local_map``) beside ``--mesh none``: the same
   K2/K3/K4/K5 launch counts and no plain-version call, losses within
   2e-3 relative, equal tokens, no process group left afterwards.  One
-  card shows no multi-rank sharding; the CPU gloo tests do.
+  card shows no multi-rank sharding; the CPU gloo tests do;
+* the dry-run (``dryrun``): ``launch.dryrun.run_cell`` on three cells of
+  the production grid, each over a fake world of 256 or 512 ranks in this
+  process with meta DTensors on a ``cuda`` mesh: TinyLlama-1.1B
+  ``train_4k`` on 16x16, Zamba2-2.7B ``long_500k`` on 16x16 (the SSM state
+  placed by batch, the attention caches split by sequence at batch 1) and
+  deepseek-moe-16b ``train_4k`` on 2x16x16; each cell ``ok``, its
+  ``n_params`` and ``model_flops`` equal to ``golden_dryrun.json``
+  (written from the JAX reference), device memory unchanged across the
+  phase, no kernel launch or plain-version call, no process group left.
 
 It times each kernel at the shapes its path gives it: the lifetime scan
 right after the profiling path (also on one segment that crosses every
@@ -113,7 +122,7 @@ and S + 1 and 1 M accesses in one set, the policy kernels' on random grids
 and address structures), ``cli``, ``check``, ``full``, ``sweep`` of the
 systolic session, ``gpu``, ``sweep`` of the GPU-cache session,
 ``campaign``, ``tpu``, ``golden``, ``serve``, ``train_golden``, ``train``,
-``family_golden``, ``families``, ``tuned``, ``mesh``;
+``family_golden``, ``families``, ``tuned``, ``mesh``, ``dryrun``;
 ``ssd_no_backward`` after K5's ``kernel_check``), then the ``walls``
 line (each phase's wall seconds), then the ``kernels`` line, then
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -2084,6 +2093,11 @@ MESH = {"train_arch": "tinyllama_1_1b", "batch": 4, "seq": 2048,
         "prompt_len": 1008, "gen": 16}
 # --mesh host against --mesh none, bf16: each step's loss, relative
 MESH_LOSS_REL_TOL = 2e-3
+# the dry-run phase: (arch, shape, multi-pod) cells of the production grid
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", False),
+                ("zamba2_2_7b", "long_500k", False),
+                ("deepseek_moe_16b", "train_4k", True))
+GOLDEN_DRYRUN = ROOT / "tests" / "fixtures" / "torch" / "golden_dryrun.json"
 
 
 @contextlib.contextmanager
@@ -2245,6 +2259,63 @@ def phase_mesh(torch, np, device, smi) -> None:
          tokens_equal=tokens_equal,
          process_group_after=False)
 
+
+def all_kernel_counts() -> dict:
+    """Launches of every kernel wrapper (K1-K5, B6, B7) and calls of
+    every plain version that counts them."""
+    from repro_torch.kernels.lifetime_scan import kernel as k1
+    out = {"lifetime_scan": k1.lifetime_scan_sorted.launches,
+           **kernel_counts(), **cache_counts()}
+    out.update({f"b7_{k}": v for k, v in b7_counts().items()})
+    return out
+
+
+def phase_dryrun(torch, device, smi) -> None:
+    """``launch.dryrun.run_cell`` on ``DRYRUN_CELLS``: each ``ok``, with
+    ``n_params`` and ``model_flops`` equal to the golden file, nothing
+    allocated on the card, no kernel launched, no group left."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    golden = json.loads(GOLDEN_DRYRUN.read_text())["cells"]
+    gc.collect()
+    torch.cuda.synchronize(device)
+    mem0, counts0 = torch.cuda.memory_allocated(device), all_kernel_counts()
+    cells = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod, device=device)
+        what = f"dryrun {arch} {shape} {rec['mesh']}"
+        if rec["status"] != "ok":
+            raise AssertionError(f"{what}: {rec['status']} "
+                                 f"{rec.get('error')}\n{rec.get('traceback')}")
+        want = golden[arch][shape]
+        for key in ("n_params", "model_flops"):
+            if rec[key] != want[key]:
+                raise AssertionError(f"{what}: {key} {rec[key]} != the "
+                                     f"reference's {want[key]}")
+        if dist.is_initialized():
+            raise AssertionError(f"{what}: a process group is left")
+        cells.append({
+            "arch": arch, "shape": shape, "mesh": rec["mesh"],
+            "lower_s": rec["lower_s"], "total_s": rec["total_s"],
+            "n_params": rec["n_params"], "model_flops": rec["model_flops"],
+            "dot_flops": rec["hlo_cost"]["dot_flops"],
+            "n_dot_sites": rec["hlo_cost"]["n_dot_sites"],
+            "bytes": rec["hlo_cost"]["bytes"], "cost": rec["cost"],
+            "collective_bytes": rec["collectives"]["by_kind"],
+            "collective_count": rec["collectives"]["count"],
+            "memory": rec["memory"], "roofline": rec["roofline"],
+            "useful_flops_ratio": rec["useful_flops_ratio"]})
+    gc.collect()
+    torch.cuda.synchronize(device)
+    mem1, counts1 = torch.cuda.memory_allocated(device), all_kernel_counts()
+    if mem1 != mem0:
+        raise AssertionError(f"dryrun: device memory {mem0} -> {mem1} B")
+    if counts1 != counts0:
+        raise AssertionError(f"dryrun: kernel counts moved {counts0} -> "
+                             f"{counts1}")
+    emit("dryrun", nvidia_smi=smi, torch=torch.__version__, cells=cells,
+         memory_allocated_bytes=[mem0, mem1], kernel_counts=counts1,
+         process_group_after=False)
 
 
 def kernel_label(mangled: str) -> str:
@@ -4323,6 +4394,7 @@ def main() -> int:
     families = timed("families", phase_families, torch, device)
     timed("tuned", phase_tuned, torch, np, device, smi)
     timed("mesh", phase_mesh, torch, np, device, smi)
+    timed("dryrun", phase_dryrun, torch, device, smi)
     rows += timed("time_serving_kernels", time_serving_kernels, torch,
                   device, serve, fa_check, ssd_check)
     rows += timed("time_training_kernels", time_training_kernels, torch,

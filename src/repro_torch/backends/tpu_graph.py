@@ -91,12 +91,13 @@ def _op_name(target) -> str:
     return packet.__name__ if packet is not None else str(target)
 
 
-def _aliasing(node):
-    """``"view"`` if the node's outputs alias its first tensor input,
-    ``"inplace"`` if they are that input mutated, else None."""
-    if _op_name(node.target) in _VIEWS:
+def _aliasing(target):
+    """``"view"`` if the op's outputs alias its first tensor input,
+    ``"inplace"`` if they are that input mutated, else None (D32's rule,
+    which ``launch/roofline.py`` counts bytes by too)."""
+    if _op_name(target) in _VIEWS:
         return "view"
-    schema = getattr(node.target, "_schema", None)
+    schema = getattr(target, "_schema", None)
     infos = [r.alias_info for r in schema.returns] if schema else []
     if not infos or any(i is None for i in infos):
         return None
@@ -217,7 +218,7 @@ def trace_graph(
         results = _tensor_outputs(val)
         if not any(r is not None for r in results):
             continue
-        kind = _aliasing(node)
+        kind = _aliasing(node.target)
         inputs = tensor_inputs(node)
         if kind == "view" and inputs:
             outs[node] = [inputs[0][0] if r is not None else None

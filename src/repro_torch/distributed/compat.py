@@ -7,11 +7,15 @@ so the caller that asked can destroy it (``destroy_owned_group``).  It
 never makes a group for a world larger than one: there the launcher
 initialises it (``init_world``, from ``torchrun``'s environment).
 
+``fake_world`` holds a world of n ranks in this one process over torch's
+fake process group, for the dry-run (ROADMAP D-entry on the fake group).
+
 ``pad`` zero-pads a DTensor where torch 2.11's own rule fails (D47).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -19,7 +23,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor
 
-__all__ = ["make_mesh", "init_world", "destroy_owned_group", "pad"]
+__all__ = ["make_mesh", "init_world", "destroy_owned_group",
+           "fake_world", "pad"]
 
 _OWNED = {"group": False}
 
@@ -94,3 +99,23 @@ def destroy_owned_group() -> bool:
     if dist.is_initialized():
         dist.destroy_process_group()
     return True
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A default process group of ``n`` ranks, this process rank 0, over
+    torch's fake process group (``torch.testing._internal.distributed.
+    fake_pg``): collectives return without moving data, so one process
+    can build the production meshes (``launch.mesh.world_size()`` reads
+    ``n``) and run a step on meta DTensors.  The group is destroyed on
+    exit, also after an error; an existing group raises."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group already exists")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

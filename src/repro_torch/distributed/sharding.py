@@ -269,6 +269,32 @@ def context():
         _STATE["depth"] = 0
 
 
+class _GradAsPlaced(torch.autograd.Function):
+    """The identity; the backward redistributes the gradient to the
+    placements its input had in the forward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_dtensor(grad) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def grad_as_placed(x):
+    """``x``, whose gradient is redistributed to ``x``'s own placements
+    (a no-op off the mesh).  DTensor leaves a gradient placed as its rules
+    produce it, e.g. split over ``model`` on the contracted dim of the
+    matmul that consumed ``x``; when ``x`` merged heads (or experts) that
+    the ``model`` shards would cut, the merge's backward view cannot split
+    that shard, which torch 2.11's view rule refuses (ROADMAP D58)."""
+    return _GradAsPlaced.apply(x) if is_dtensor(x) else x
+
+
 class _Psum(torch.autograd.Function):
     """SUM all-reduce of a rank's local addend over a process group; the
     result is replicated, so each addend's gradient is the result's."""

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
@@ -51,7 +52,7 @@ class HybridLM(nn.Module):
     def forward(self, tokens, cache=None, cache_index=None):
         cfg = self.cfg
         S = tokens.shape[1]
-        x = constrain(self.embed[tokens], (BATCH, None, None))
+        x = constrain(F.embedding(tokens, self.embed), (BATCH, None, None))
         A, G = cfg.attn_every, n_attn_apps(cfg)
         positions = torch.arange(S, device=tokens.device)
         if cache_index is not None:

@@ -130,6 +130,14 @@ def split_heads(t, n, hd, groups=None):
     return t.reshape(t.shape[0], t.shape[1], n, hd)
 
 
+def merge_heads(o):
+    """[B, S, n, hd] -> [B, S, n * hd], its gradient placed as the merged
+    tensor is under a mesh (``sharding.grad_as_placed``), so that the
+    backward's split of the heads never meets a ``model`` shard that cuts
+    one."""
+    return shd.grad_as_placed(o.reshape(o.shape[0], o.shape[1], -1))
+
+
 def blockwise_attention(q, k, v, *, causal, q_offset=0, q_block=512,
                         kv_block=1024, probs_dtype=torch.float32):
     """Memory-bounded attention: online softmax over kv blocks, looped over
@@ -379,7 +387,7 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
       (``layer_index``, ``cache_index``), attention runs over that layer's
       valid prefix, and the same two tensors are returned.
     """
-    B, S, _ = x.shape
+    S = x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     src = context if context is not None else x
     q = x @ p.wq
@@ -447,7 +455,7 @@ def attention_block(p, cfg, x, *, positions, causal=True, kv_cache=None,
         if return_kv:
             new_cache = (k, v)
     o = constrain(o, (BATCH, None, MODEL, None))
-    out = o.reshape(B, S, H * hd) @ p.wo
+    out = merge_heads(o) @ p.wo
     if cfg.tp_bf16_reduce:
         out = out.to(torch.bfloat16)
     return out, new_cache
@@ -563,6 +571,26 @@ def _route(probs, K: int, C: int, e_base: int, E_loc: int) -> dict:
             "order": order, "keep": keep, "slot": slot}
 
 
+def _route_whole(probs, K: int, C: int, e_base: int, E_loc: int) -> dict:
+    """``_route``; under the mesh every rank routes all T tokens on the
+    whole, replicated ``probs`` (``local_map``): DTensor has no sharding
+    rule for ``searchsorted``, and GSPMD replicates the reference's sort
+    of a sharded dim too."""
+    if not shd.is_dtensor(probs):
+        return _route(probs, K, C, e_base, E_loc)
+    keys = ("gates", "idx", "order", "keep", "slot")
+    mesh = probs.device_mesh
+    whole = (shd.Replicate(),) * mesh.ndim
+
+    def local(pr):
+        r = _route(pr, K, C, e_base, E_loc)
+        return tuple(r[k] for k in keys)
+    out = shd.local_map(local, out_placements=(whole,) * len(keys),
+                        in_placements=(whole,), device_mesh=mesh,
+                        redistribute_inputs=True)(probs)
+    return {"probs": probs, "capacity": C, **dict(zip(keys, out))}
+
+
 def moe_route(p, cfg, xt, capacity_factor: float = 1.25) -> dict:
     """The global path's routing of tokens ``xt`` [T, D] (``_route`` over
     all E experts): the float32 softmax ``probs`` of the router logits,
@@ -583,14 +611,14 @@ def _moe_dispatch_compute(xt, probs, wg, wu, wd, K, C, e_base):
     (D36)."""
     T, D = xt.shape
     E_loc = wg.shape[0]
-    r = _route(probs, K, C, e_base, E_loc)
+    r = _route_whole(probs, K, C, e_base, E_loc)
     order, keep, slot = r["order"], r["keep"], r["slot"]
     buf = torch.zeros((E_loc * C + 1, D), dtype=xt.dtype, device=xt.device)
     buf = buf.index_put((slot,), xt[order // K])   # duplicates: dump row only
     ex_in = constrain(buf[:-1].reshape(E_loc, C, D), (MODEL, None, None))
     h = F.silu(torch.bmm(ex_in, wg)) * torch.bmm(ex_in, wu)
     ex_out = constrain(torch.bmm(h, wd), (MODEL, None, None))
-    flat_out = ex_out.reshape(E_loc * C, D)
+    flat_out = shd.grad_as_placed(ex_out.reshape(E_loc * C, D))
     routed = torch.where(keep[:, None],
                          flat_out[torch.clamp(slot, 0, E_loc * C - 1)],
                          torch.zeros((), dtype=xt.dtype, device=xt.device))

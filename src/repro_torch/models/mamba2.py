@@ -115,7 +115,7 @@ def mamba_block(p, cfg: ArchConfig, u, ssm_state=None, conv_state=None):
         scan = (ssd_ops.ssd_scan if cfg.attn_impl == "flash"
                 else ssd.ssd_chunked)
         y = _per_head_scan(scan, x, dt, A, B_ssm, C_ssm, p.D, cfg.ssm_chunk)
-    y = y.reshape(Bsz, S, d_in)
+    y = L.merge_heads(y)
     y = L.rmsnorm(y * F.silu(z), p.norm_g)
     return u + y @ p.out_proj, new_ssm, new_conv
 
@@ -218,7 +218,7 @@ class MambaLM(nn.Module):
 
     def forward(self, tokens, cache=None):
         cfg = self.cfg
-        x = constrain(self.embed[tokens], (BATCH, None, None))
+        x = constrain(F.embedding(tokens, self.embed), (BATCH, None, None))
         x, ssm_n, conv_n = run_blocks(self.layers, cfg, x, cache)
         new_cache = None if cache is None else {
             "ssm": torch.stack(ssm_n), "conv": torch.stack(conv_n)}

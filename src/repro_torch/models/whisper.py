@@ -112,11 +112,10 @@ def encode(model: WhisperLM, frames):
 
 def _cross_attend(p, cfg, x, ck, cv):
     """Cross-attention against precomputed (cached) encoder k/v."""
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     q = L.split_heads(x @ p.wq, H, hd, KV)
     o = L.per_head(partial(_cross_scores, dtype=x.dtype), q, ck, cv)
-    return o.reshape(B, S, H * hd) @ p.wo
+    return L.merge_heads(o) @ p.wo
 
 
 def _cross_scores(q, ck, cv, dtype):

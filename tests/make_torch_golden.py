@@ -83,6 +83,13 @@ x ``systolic,gpu`` at registry parameters, reduced to its key-free facts by
 short-lived fractions per subpartition, the capacity fractions and the sweep
 points' area and energy against SRAM; and the cross-suite aggregate.
 ``--only campaign`` writes this file alone (about a minute).
+
+``tests/fixtures/torch/golden_dryrun.json``: for every arch x shape cell of
+the reference's dry-run grid, ``n_params`` (the elements of the
+reference's abstract parameters, ``launch/steps.py`` ``abstract_params``),
+``model_flops`` (``launch/roofline.py``) and whether the shape applies
+(``shape_applicable``).  ``--only dryrun`` writes this file alone
+(seconds).
 """
 
 from __future__ import annotations
@@ -142,6 +149,8 @@ TUNED_DEC_POS_ROWS = 528
 TUNED_OUTPUTS = ("prefill_logits", "greedy_tokens", "loss", "grad_norm",
                  "lr")
 # entry key -> (registry workload, param overrides)
+OUT_DRYRUN = Path(__file__).parent / "fixtures" / "torch" / \
+    "golden_dryrun.json"
 GPU_ENTRIES = {"tinyllama_1_1b@2": ("tinyllama_1_1b", {"n_layers": 2}),
                "tinyllama_1_1b@22": ("tinyllama_1_1b", {"n_layers": 22})}
 
@@ -428,13 +437,34 @@ def golden_campaign() -> dict:
     return {"run": run, **campaign_facts(result.artifacts, result.aggregate)}
 
 
+def golden_dryrun() -> dict:
+    import math
+    from repro.configs.base import ARCH_IDS, SHAPES, shape_applicable
+    from repro.launch.roofline import model_flops
+    from repro.launch.steps import abstract_params
+    from repro.models.api import build
+    cells = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        pshapes, _ = abstract_params(build(cfg))
+        n_params = sum(math.prod(x.shape) for x in jax.tree.leaves(pshapes))
+        cells[arch] = {name: {"n_params": n_params,
+                              "model_flops": model_flops(cfg, shape),
+                              "applicable": shape_applicable(cfg, shape)}
+                       for name, shape in SHAPES.items()}
+    return {"cells": cells}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, nargs="+", default=[2, 22])
     ap.add_argument("--only",
                     choices=["tinyllama", "zamba2", "train", "gpu",
-                             "campaign", "families", "tuned"])
+                             "campaign", "families", "tuned", "dryrun"])
     args = ap.parse_args(argv)
+    if args.only in (None, "dryrun"):
+        OUT_DRYRUN.write_text(json.dumps(golden_dryrun(), indent=1) + "\n")
+        print(f"wrote {OUT_DRYRUN}")
     if args.only in (None, "campaign"):
         OUT_CAMPAIGN.write_text(json.dumps(golden_campaign(), indent=1)
                                 + "\n")
@@ -459,7 +489,7 @@ def main(argv=None) -> None:
             np.savez_compressed(tuned_path(arch), **golden_tuned(arch))
             print(f"wrote {tuned_path(arch)}")
     if args.only in ("zamba2", "train", "gpu", "campaign", "families",
-                     "tuned"):
+                     "tuned", "dryrun"):
         return
     golden = json.loads(OUT.read_text()) if OUT.exists() else {}
     golden["run"] = RUN

@@ -15,7 +15,8 @@ a session of their own, killed whole on expiry.  The tests compare:
 - the MoE expert-parallel dispatch (phi3.5-moe smoke, a (2, 2) mesh)
   within 1e-5 of the reference's, of the port's global path on each data
   shard (the same capacity) and, at capacity factor 8 (nothing dropped),
-  of the port's global path on the whole batch;
+  of the port's global path on the whole batch; the global path on the
+  mesh (each rank routes every token) within 1e-5 of it without a mesh;
 - one (2, 2)-sharded float32 train step of TinyLlama, Mamba-2 and
   phi3.5-moe, loaded from the reference's parameters, against the
   reference's step: TinyLlama's and Mamba-2's single-device step,
@@ -193,6 +194,12 @@ def test_moe_local_dispatch_matches_reference_and_global_path(runs):
                                port["moe_global_per_shard"], atol=1e-5,
                                rtol=0)
     np.testing.assert_allclose(port["moe_local_cf8"], port["moe_global_cf8"],
+                               atol=1e-5, rtol=0)
+
+
+def test_moe_global_dispatch_on_the_mesh_matches_it_without(runs):
+    _, port, _ = runs
+    np.testing.assert_allclose(port["moe_global_mesh"], port["moe_global"],
                                atol=1e-5, rtol=0)
 
 

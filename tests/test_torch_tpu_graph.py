@@ -328,16 +328,18 @@ def test_abstract_params_and_input_specs_equal_the_reference(arch):
             want[".".join(keys)] = (leaf.shape, str(leaf.dtype))
     assert {n: (s.shape, str(s.dtype).split(".")[-1])
             for n, s in port.items()} == want
-    specs = input_specs(arch, "train_4k")
+    assert sum(math.prod(s.shape) for s in port.values()) == \
+        sum(math.prod(x.shape) for x in jax.tree.leaves(ref))
+    from repro.configs.base import SHAPES, shape_applicable
     from repro.launch.steps import input_specs as ref_input_specs
-    ref_specs = ref_input_specs(arch, "train_4k")
-    assert {k: v.shape for k, v in specs.items()} == \
-        {k: v.shape for k, v in ref_specs.items()}
-    specs = input_specs(arch, "decode_32k")
-    ref_specs = ref_input_specs(arch, "decode_32k")
-    assert jax.tree.map(lambda v: tuple(v.shape), specs,
-                        is_leaf=lambda v: hasattr(v, "shape")) == \
-        jax.tree.map(lambda v: tuple(v.shape), ref_specs)
+    for shape_name, shape in SHAPES.items():
+        if not shape_applicable(cfg, shape):   # a cell the dry-run skips
+            continue
+        specs = input_specs(arch, shape_name)
+        ref_specs = ref_input_specs(arch, shape_name)
+        assert jax.tree.map(lambda v: tuple(v.shape), specs,
+                            is_leaf=lambda v: hasattr(v, "shape")) == \
+            jax.tree.map(lambda v: tuple(v.shape), ref_specs), shape_name
 
 
 # ---------------------------------------------------------------------------

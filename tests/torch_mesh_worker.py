@@ -101,12 +101,18 @@ def _moe(rank, ref, out, mesh):
         with shd.context():
             local = {cf: L.moe_block(moe, cfg, xd, cf)[0].full_tensor()
                      for cf in (1.25, 8.0)}
+            # the global path on the mesh: every rank routes all tokens
+            glob_mesh = L.moe_block(
+                moe, dataclasses.replace(cfg, moe_local_dispatch=False), xd,
+                1.25)[0].full_tensor()
     finally:
         shd.set_mesh(None)
     out["moe_local"] = local[1.25].numpy()
     out["moe_local_cf8"] = local[8.0].numpy()
     out["moe_global_cf8"] = glob[8.0].detach().numpy()
     out["moe_global_per_shard"] = shard.detach().numpy()
+    out["moe_global"] = glob[1.25].detach().numpy()
+    out["moe_global_mesh"] = glob_mesh.numpy()
 
 
 def _train(ref, out, mesh, ckpt_dir):
